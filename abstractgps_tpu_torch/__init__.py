@@ -2,19 +2,22 @@
 
 Exact GP regression on an NVIDIA H100 (reference surface: AbstractGPs.jl):
 GP priors, FiniteGP projections, the log marginal likelihood, and exact
-posteriors with sequential conditioning. Kernels and means are
-``nn.Module``s; models and ops are plain functions on tensors. At size on
-the card (f32) the hot path runs hand-written CUDA kernels (``csrc/``):
-the fused gram tile, the slab and block Cholesky factor+inverse, and the
-batched triangular inverse behind the wide prediction solves.
+posteriors with sequential conditioning, their gradients, and MLE-II
+fitting over tagged parameter trees (``params``, ``fit``, ``fit_lbfgs``).
+Kernels and means are ``nn.Module``s; models and ops are plain functions
+on tensors. At size on the card (f32) the hot path runs hand-written CUDA
+kernels (``csrc/``): the fused gram tile, the slab and block Cholesky
+factor+inverse, the batched triangular inverse behind the wide solves and
+the logpdf backward, the gram VJP and the logpdf-backward contraction.
 
 Tensors keep their device; other inputs go to the default device
 (``"cuda"``; ``set_default_device("cpu")`` for CPU use). The JAX package
 ``abstractgps_tpu`` is the frozen reference this port is tested against.
 """
 
-from . import kernels, ops  # noqa: F401
-from .convert import kernel_from_numpy, mean_from_numpy, noise_from_numpy
+from . import inference, kernels, ops, params  # noqa: F401
+from .convert import kernel_from_numpy, mean_from_numpy, noise_from_numpy, params_from_numpy
+from .inference import FitResult, fit, fit_lbfgs, nlml
 from .kernels import *  # noqa: F401,F403 — kernel zoo re-export
 from .kernels.base import (
     ARDTransform,

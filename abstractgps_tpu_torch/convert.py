@@ -13,6 +13,11 @@ list under ``"kernels"``. Array leaves become tensors of the given dtype on
 the given device; integers (``PolynomialKernel.degree``) stay integers.
 ``FunctionTransform`` and ``CustomMean`` carry code, not weights, and are
 refused.
+
+A tagged parameter tree (``params``) is carried across by
+``params_from_numpy``: nested dicts, lists and tuples whose leaves are
+``{"type": "Positive", "raw": a}``, ``{"type": "Bounded", "raw": a, "lo":
+lo, "hi": hi}``, ``{"type": "Fixed", "val": v}`` or plain arrays.
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ import numpy as np
 import torch
 
 from . import kernels as _kernels
+from . import params as _params
 from .kernels import base as _base
 from .means import ConstMean, ZeroMean
 from .ops.noise import DenseNoise, DiagonalNoise, IsotropicNoise
 
-__all__ = ["kernel_from_numpy", "mean_from_numpy", "noise_from_numpy"]
+__all__ = ["kernel_from_numpy", "mean_from_numpy", "noise_from_numpy", "params_from_numpy"]
 
 _TRANSFORMS = {
     "ScaleTransform": _base.ScaleTransform,
@@ -87,3 +93,23 @@ def noise_from_numpy(tree: dict, device="cpu", dtype=torch.float64):
     if kind == "DenseNoise":
         return DenseNoise(_leaf(tree["cov"], dtype, device))
     raise ValueError(f"cannot carry across {kind!r}")
+
+
+def params_from_numpy(tree, device="cpu", dtype=torch.float64):
+    """The port's tagged parameter tree for a nested description (see the
+    module docstring); raw tensors and plain arrays become leaves that
+    require grad."""
+    device = torch.device(device)
+    if isinstance(tree, dict) and tree.get("type") in ("Positive", "Bounded", "Fixed"):
+        kind = tree["type"]
+        if kind == "Fixed":
+            return _params.Fixed(tree["val"])
+        raw = _leaf(tree["raw"], dtype, device).requires_grad_()
+        if kind == "Positive":
+            return _params.Positive(raw)
+        return _params.Bounded(raw, float(tree["lo"]), float(tree["hi"]))
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
+    return _leaf(tree, dtype, device).requires_grad_()

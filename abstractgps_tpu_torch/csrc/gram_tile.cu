@@ -5,43 +5,16 @@
 // kernel is memory-bound. Design: one 64x64 output tile per CTA, 16x16 threads with 4x4
 // outputs each; the x and z row tiles are staged in shared memory in feature chunks of 32,
 // the row norms are accumulated from the same staged values, and the map g is applied in
-// the epilogue so d^2 never reaches device memory. Plain FP32 FMA, no tensor cores: the
+// the epilogue (agp::apply_map, gram_sweep.cuh, shared with the backward sweeps) so d^2 never
+// reaches device memory. Plain FP32 FMA, no tensor cores: the
 // distance expansion is cancellation-prone and must run at full f32.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "gram_sweep.cuh"
 
 namespace {
 
 constexpr int kTile = 64;
 constexpr int kThreads = 16;
 constexpr int kChunk = 32;
-
-__device__ __forceinline__ float safe_sqrt(float d2) { return d2 > 0.f ? sqrtf(d2) : 0.f; }
-
-// Epilogue per isotropic family; ids match abstractgps_tpu_torch/ops/fused_gram.py FAMILIES.
-__device__ __forceinline__ float apply_map(int family, float d2, float p0) {
-  switch (family) {
-    case 0:  // squared exponential
-      return expf(-0.5f * d2);
-    case 1:  // exponential / Matern-1/2
-      return expf(-safe_sqrt(d2));
-    case 2: {  // Matern-3/2
-      const float t = 1.7320508075688772f * safe_sqrt(d2);
-      return (1.f + t) * expf(-t);
-    }
-    case 3: {  // Matern-5/2
-      const float t = 2.23606797749979f * safe_sqrt(d2);
-      return (1.f + t + t * t / 3.f) * expf(-t);
-    }
-    case 4:  // rational quadratic, p0 = alpha
-      return powf(1.f + d2 / (2.f * p0), -p0);
-    case 5:  // gamma-exponential, p0 = gamma
-      return expf(-(d2 > 0.f ? powf(d2, 0.5f * p0) : 0.f));
-    case 6:  // cosine
-      return cosf(3.14159265358979323846f * safe_sqrt(d2));
-  }
-  return __int_as_float(0x7fc00000);
-}
 
 __global__ void gram_tile_kernel(const float* __restrict__ x, const float* __restrict__ z,
                                  float* __restrict__ out, const float* __restrict__ params,
@@ -95,7 +68,7 @@ __global__ void gram_tile_kernel(const float* __restrict__ x, const float* __res
       if (c >= m) continue;
       float d2 = fmaxf(nx[i] + nz[j] - 2.f * dot[i][j], 0.f);
       if (symmetric && r == c) d2 = 0.f;
-      out[(long)r * m + c] = apply_map(family, d2, p0);
+      out[(long)r * m + c] = agp::apply_map(family, d2, p0);
     }
   }
 }

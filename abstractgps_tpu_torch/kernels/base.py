@@ -1,7 +1,10 @@
 """Kernel layer — base interface, algebra, and input transforms.
 
 Kernels are ``nn.Module``s whose hyperparameters are ``nn.Parameter``s, so
-autograd flows through them and ``kernel.to(device)`` moves them. Every
+autograd flows through them and ``kernel.to(device)`` moves them; a
+caller's tensor that requires grad is kept as it is instead (the
+rebuild-the-kernel-from-θ pattern of training loops), so autograd flows
+back to the caller. ``hyperparameters`` lists both kinds. Every
 kernel implements three tensor-level ops (whole gram tiles, never scalar
 pair loops):
 
@@ -34,6 +37,7 @@ __all__ = [
     "LinearTransform",
     "FunctionTransform",
     "with_lengthscale",
+    "hyperparameters",
     "compose",
     "kernelmatrix",
     "kernelmatrix_diag",
@@ -218,6 +222,23 @@ class TransformedKernel(Kernel):
         return self.kernel.diag(self._t(x))
 
 
+def hyperparameters(module: nn.Module) -> list:
+    """The hyperparameter tensors of a kernel's module tree, in a fixed
+    order: its ``nn.Parameter``s and its plain tensor attributes (a caller's
+    tensor that requires grad, or one computed from it, as ``as_param``
+    keeps them). The custom autograd Functions take these as inputs, so
+    their backwards reach every hyperparameter."""
+    seen, out = set(), []
+    for m in module.modules():
+        cands = list(m._parameters.values()) + [
+            v for v in vars(m).values() if isinstance(v, torch.Tensor)]
+        for t in cands:
+            if t is not None and t.is_floating_point() and id(t) not in seen:
+                seen.add(id(t))
+                out.append(t)
+    return out
+
+
 def compose(kernel: Kernel, transform) -> TransformedKernel:
     """``k ∘ t`` (Julia's ``∘`` composition)."""
     return TransformedKernel(kernel, transform)
@@ -225,8 +246,12 @@ def compose(kernel: Kernel, transform) -> TransformedKernel:
 
 def with_lengthscale(kernel: Kernel, lengthscale) -> TransformedKernel:
     """Kernel with lengthscale ℓ: inputs scaled by 1/ℓ. Scalar ℓ →
-    isotropic; vector ℓ → ARD."""
-    ell = as_param(lengthscale).detach()
+    isotropic; vector ℓ → ARD. A caller's ℓ that requires grad stays in the
+    graph (1/ℓ is computed from it); any other ℓ makes 1/ℓ the transform's
+    own parameter."""
+    ell = as_param(lengthscale)
+    if isinstance(ell, nn.Parameter):
+        ell = ell.detach()
     if ell.ndim == 0:
         return TransformedKernel(kernel, ScaleTransform(1.0 / ell))
     return TransformedKernel(kernel, ARDTransform(1.0 / ell))

@@ -247,7 +247,10 @@ class PeriodicKernel(Kernel):
     def __init__(self, period=1.0):
         super().__init__()
         p = as_param(period)
-        self.period = p if p.ndim else torch.nn.Parameter(p.detach().reshape(1))
+        if p.ndim == 0:
+            p = (torch.nn.Parameter(p.detach().reshape(1))
+                 if isinstance(p, torch.nn.Parameter) else p.reshape(1))
+        self.period = p
 
     def cross(self, x, z):
         x, z = as_inputs(x), as_inputs(z)

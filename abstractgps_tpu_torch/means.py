@@ -15,21 +15,20 @@ from .ops.distance import as_inputs, as_tensor
 __all__ = ["ZeroMean", "ConstMean", "CustomMean", "mean_vector", "as_mean"]
 
 
-def as_param(v) -> nn.Parameter:
-    """A hyperparameter: a tensor keeps its dtype and device; a Python or
-    numpy number becomes a CPU float64 scalar (the JAX package's x64
-    ``jnp.asarray(v, float)``)."""
+def as_param(v) -> torch.Tensor:
+    """A hyperparameter. A tensor that requires grad (the caller's own, or
+    one computed from it) is kept as it is, so autograd flows back to the
+    caller; another tensor becomes an ``nn.Parameter`` of its dtype and
+    device; a Python or numpy number becomes a CPU float64 ``nn.Parameter``
+    (the JAX package's x64 ``jnp.asarray(v, float)``)."""
     if isinstance(v, (str, bytes)):
         raise TypeError(
             f"kernel/mean parameter must be numeric, got {type(v).__name__}: {v!r}"
         )
-    if isinstance(v, nn.Parameter):
-        return v
     if isinstance(v, torch.Tensor):
-        t = v.detach()
-        if not t.is_floating_point():
-            t = t.to(torch.float64)
-        return nn.Parameter(t)
+        if v.requires_grad:
+            return v
+        return nn.Parameter(v if v.is_floating_point() else v.to(torch.float64))
     return nn.Parameter(torch.as_tensor(v, dtype=torch.float64))
 
 

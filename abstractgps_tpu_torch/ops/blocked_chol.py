@@ -40,8 +40,25 @@ Layouts: ``slab_factor`` returns the plain-lower slab factor L (the TPU
 kernel returned Lᵀ, a store-layout choice) and the (W/B, B, B) inverses of
 its diagonal blocks; ``chol_inv_block`` returns (L, L⁻¹), plain lower.
 
-Backward passes are not ported yet: the autograd Functions below raise
-``NotImplementedError`` from ``backward`` (ROADMAP.md, queue 1).
+Backward passes (``torch.autograd.Function``s, the JAX package's
+``custom_vjp``/``custom_jvp`` rules written as reverse rules):
+
+- ``pallas_cholesky`` and ``cholesky_gram``: Murray's pullback
+  Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹), its two solves as the doubling trtri (diagonal
+  blocks through ``tri_inv_block``) and TRMMs; ``cholesky_gram`` then
+  takes the VJP of K(x, x) + diag(noise) through ``kernel.gram`` (the
+  gram VJP kernel ``fused_gram.gram_bwd`` at size).
+- ``gram_logpdf_core``: ∂logpdf/∂K = ½(ααᵀ − K⁻¹), with tril(K⁻¹) from the
+  trtri + lauum and α = L⁻ᵀz from the trtri's L⁻¹ (one thin GEMM); for an
+  isotropic base kernel under a Scale/Transform chain the contraction is
+  the kernel ``fused_gram.logpdf_contraction``, other kernels go through
+  autograd of ⟨C, K⟩.
+- the three wide solves: the triangular-solve adjoints over the L⁻¹ that
+  their forward computed.
+
+Each backward takes the kernel's hyperparameter tensors
+(``kernels.base.hyperparameters``) as inputs, so gradients reach the
+caller's tensors as well as the kernel's ``nn.Parameter``s.
 """
 
 from __future__ import annotations
@@ -61,10 +78,6 @@ _OUTER = 1024       # outer slab width of the two-level sweep
 _SLAB = True        # full-width slabs go through slab_factor
 _WIDE_RHS = 256     # the trtri amortizes over this many RHS columns
 _TRMM_SPLIT = 2048  # split dense x triangular products at/above this size
-
-_BACKWARD_TODO = ("backward of {} is not ported yet: ROADMAP.md queue 1, "
-                  "item 1 (the training path)")
-
 
 def set_interpret(flag: bool) -> None:
     global _INTERPRET
@@ -343,14 +356,29 @@ def _blocked_cholesky_impl(A: torch.Tensor, block: int) -> torch.Tensor:
     return L[:n, :n] if pad else L
 
 
+def _chol_pullback(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
+    """Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹), Φ = strict lower + ½·diag (Murray 2016):
+    the reverse rule of L = chol(A) (the JAX package's ``custom_jvp`` at
+    ``pallas_chol.py:674`` and ``_cholesky_gram_bwd`` at :794). The solves
+    are one trtri and two TRMMs at IEEE f32."""
+    M = _mm(L.T, torch.tril(Lbar))
+    P = torch.tril(M, -1) + 0.5 * torch.diag(torch.diagonal(M))
+    W = _wide_inverse(L)
+    Abar = _trmm_lr(_trmm_ul(W, P), W)
+    return 0.5 * (Abar + Abar.T)
+
+
 class _PallasCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A):
-        return _blocked_cholesky_impl(A, _BLOCK)
+        L = _blocked_cholesky_impl(A, _BLOCK)
+        ctx.save_for_backward(L)
+        return L
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_BACKWARD_TODO.format("pallas_cholesky"))
+    def backward(ctx, Lbar):
+        (L,) = ctx.saved_tensors
+        return _chol_pullback(L, Lbar)
 
 
 def pallas_cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -416,19 +444,53 @@ def _cholesky_gram_impl(kernel, x, noise_diag, block, rhs=None):
     return L
 
 
+def _param_grads(params, bars: dict):
+    """The Function's gradients for its hyperparameter inputs, from a dict
+    id(tensor) → bar (None where nothing flowed)."""
+    out = []
+    for p in params:
+        b = bars.get(id(p))
+        out.append(None if b is None else b.to(dtype=p.dtype, device=p.device).reshape(p.shape))
+    return out
+
+
+def _gram_vjp(kernel, x, params, Kbar):
+    """(x̄, {id(param): bar}) of ⟨K̄, kernel.gram(x)⟩ by autograd through the
+    kernel's own gram (the gram VJP kernel at size)."""
+    with torch.enable_grad():
+        x_ = x.detach().requires_grad_()
+        K = kernel.gram(x_)
+        wrt = [p for p in params if p.requires_grad]
+        grads = torch.autograd.grad(K, [x_, *wrt], grad_outputs=Kbar.to(K.dtype),
+                                    allow_unused=True)
+    return grads[0], {id(p): g for p, g in zip(wrt, grads[1:]) if g is not None}
+
+
 class _CholeskyGram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kernel, x, noise_diag, *params):
-        return _cholesky_gram_impl(kernel, x, noise_diag, _BLOCK)
+        L = _cholesky_gram_impl(kernel, x, noise_diag, _BLOCK)
+        ctx.kernel = kernel
+        ctx.save_for_backward(x, L)
+        return L
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_BACKWARD_TODO.format("cholesky_gram"))
+    def backward(ctx, Lbar):
+        from ..kernels.base import hyperparameters
+
+        x, L = ctx.saved_tensors
+        params = hyperparameters(ctx.kernel)
+        Abar = _chol_pullback(L, Lbar)
+        xbar, bars = _gram_vjp(ctx.kernel, x, params, Abar)
+        return (None, xbar, torch.diagonal(Abar).clone(), *_param_grads(params, bars))
 
 
 def cholesky_gram(kernel, x, noise_diag):
-    """``chol(K(x, x) + diag(noise_diag))`` without materialising K."""
-    return _CholeskyGram.apply(kernel, x, noise_diag, *kernel.parameters())
+    """``chol(K(x, x) + diag(noise_diag))`` without materialising K;
+    differentiable in x, the noise and the kernel's hyperparameters."""
+    from ..kernels.base import hyperparameters
+
+    return _CholeskyGram.apply(kernel, x, noise_diag, *hyperparameters(kernel))
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +500,8 @@ def cholesky_gram(kernel, x, noise_diag):
 
 def _fused_logpdf(kernel, x, noise_diag, delta):
     """(logpdf, (slabs, zs, n, npad)): the whitening solve and logdet ride
-    the sweep; the N×N factor is never assembled."""
+    the sweep; the N×N factor is never assembled (a backward assembles it
+    from the slabs)."""
     vec = delta.ndim == 1
     D = (delta[:, None] if vec else delta).to(torch.float32)
     slabs, zs, n, npad = _gram_sweep_slabs(kernel, x, noise_diag, _BLOCK, rhs=D)
@@ -452,19 +515,100 @@ def _fused_logpdf(kernel, x, noise_diag, delta):
 class _GramLogpdfCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kernel, x, noise_diag, delta, *params):
-        out, _ = _fused_logpdf(kernel, x, noise_diag, delta)
+        out, (slabs, zs, n, npad) = _fused_logpdf(kernel, x, noise_diag, delta)
+        # the backward assembles the factor from the slabs, which are kept
+        # only when a backward can run (padded rows and columns are the
+        # identity, padded z rows exactly 0); α = L⁻ᵀz is deferred to the
+        # backward, which gets L⁻¹ from the potri's trtri
+        ctx.kernel, ctx.vec, ctx.n, ctx.npad = kernel, delta.ndim == 1, n, npad
+        ctx.offsets = [r0 for r0, _ in slabs]
+        ctx.save_for_backward(x, noise_diag, torch.cat(zs), *(Sf for _, Sf in slabs))
         return out
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_BACKWARD_TODO.format("gram_logpdf_core"))
+    def backward(ctx, gbar):
+        from ..kernels.base import hyperparameters
+
+        x, noise_diag, zp, *Sfs = ctx.saved_tensors
+        kernel, n = ctx.kernel, ctx.n
+        Lp = _assemble_slabs(ctx.npad, list(zip(ctx.offsets, Sfs)), torch.float32, x.device)
+        params = hyperparameters(kernel)
+        g = (gbar.reshape(1) if ctx.vec else gbar).to(torch.float32)
+        T, W = _spd_inv_lower_and_trtri(Lp, _BLOCK)
+        alpha = _mm(W.T, zp)[:n]  # α = L⁻ᵀ z = (K+Σ)⁻¹ δ
+        T = T[:n, :n]             # tril(K⁻¹)
+        gsum = torch.sum(g)
+        fused = _try_fused_contraction(kernel, x, alpha, g, T, gsum, params)
+        if fused is not None:
+            xbar, bars, ndbar = fused
+        else:
+            # ⟨Ā, K⟩ with Ā = ½(Σ_j ḡ_j α_j α_jᵀ − ḡΣ K⁻¹) symmetric, folded
+            # onto the lower triangle (T holds only tril(K⁻¹))
+            A_low = 0.5 * (_mm(alpha * g[None, :], alpha.T) - gsum * T)
+            C = torch.tril(A_low, -1) * 2.0 + torch.diag(torch.diagonal(A_low))
+            xbar, bars = _gram_vjp(kernel, x, params, C)
+            ndbar = torch.diagonal(C).clone()
+        dbar = -(alpha * g[None, :])  # ∂/∂δ_j = −ḡ_j α_j
+        dbar = dbar[:, 0] if ctx.vec else dbar
+        return (None, xbar, ndbar.to(noise_diag.dtype), dbar, *_param_grads(params, bars))
 
 
 def gram_logpdf_core(kernel, x, noise_diag, delta):
     """``-0.5 (n log2π + logdet(K+Σ) + δᵀ(K+Σ)⁻¹δ)`` per column of δ,
     without materialising K. ``delta`` is (n,) or (n, q); returns a scalar
-    or (q,)."""
-    return _GramLogpdfCore.apply(kernel, x, noise_diag, delta, *kernel.parameters())
+    or (q,). Differentiable in x, the noise, δ and the kernel's
+    hyperparameters."""
+    from ..kernels.base import hyperparameters
+
+    return _GramLogpdfCore.apply(kernel, x, noise_diag, delta, *hyperparameters(kernel))
+
+
+def _try_fused_contraction(kernel, x, alpha, g, T, gsum, params):
+    """The logpdf backward's contraction through the single-sweep kernel
+    ``fused_gram.logpdf_contraction`` when the kernel peels to a
+    Scale/Transform chain over an isotropic base: ``(x̄, bars, noise bar)``,
+    or None (the generic autograd fallback: sums, products, periodic, ...).
+    The peel itself is differentiated by autograd, with the kernel's bars
+    as ``grad_outputs``, so any transform stack keeps exact cotangents."""
+    from ..kernels.base import ScaledKernel, TransformedKernel
+    from ..kernels.stationary import IsotropicKernel
+    from . import fused_gram
+    from .distance import as_inputs
+
+    base = kernel
+    while isinstance(base, (ScaledKernel, TransformedKernel)):
+        base = base.kernel
+    if not isinstance(base, IsotropicKernel):
+        return None
+    if not (fused_gram._INTERPRET or T.is_cuda):
+        return None
+    if T.dtype != torch.float32 or T.shape[0] < _MIN_N:
+        return None
+
+    with torch.enable_grad():
+        x_ = x.detach().requires_grad_()
+        s2 = torch.ones((), dtype=torch.float32, device=x.device)
+        k, xp = kernel, as_inputs(x_)
+        while isinstance(k, (ScaledKernel, TransformedKernel)):
+            if isinstance(k, ScaledKernel):
+                s2 = s2 * k.variance
+            else:
+                xp = k.transform(xp)
+            k = k.kernel
+        s2bar, pbar, xpbar = fused_gram.logpdf_contraction(
+            xp.detach().to(torch.float32), s2.detach().to(torch.float32).reshape(()),
+            alpha * g[None, :], alpha, gsum, T, base.FAMILY, base._map_params())
+        outs, couts = [xp], [xpbar.to(xp.dtype)]
+        if s2.requires_grad:
+            outs.append(s2)
+            couts.append(s2bar.to(s2.dtype).reshape(s2.shape))
+        wrt = [p for p in params if p.requires_grad]
+        grads = torch.autograd.grad(outs, [x_, *wrt], grad_outputs=couts, allow_unused=True)
+    bars = {id(p): gr for p, gr in zip(wrt, grads[1:]) if gr is not None}
+    for p in base._map_params():  # the base map's hyperparameter takes p̄ directly
+        bars[id(p)] = pbar
+    ndbar = 0.5 * (torch.sum(alpha * alpha * g[None, :], dim=1) - gsum * torch.diagonal(T))
+    return grads[0], bars, ndbar
 
 
 def _logpdf_from_chol(L, delta):
@@ -584,6 +728,22 @@ def _inv_lower_blocked_rowpanel(L: torch.Tensor, block: int) -> torch.Tensor:
     return W
 
 
+def _spd_inv_lower_and_trtri(L: torch.Tensor, block: int):
+    """``(tril(K⁻¹), L⁻¹)`` for K = LLᵀ: the doubling trtri W = L⁻¹, then
+    the lauum by output tiles, T[a:a+P, b:b+P] = W[a:, a:a+P]ᵀ W[a:, b:b+P]
+    for a ≥ b (rows of W above a are zero in W's columns a:a+P), ~2N³/3
+    GEMM flops instead of the dense WᵀW. Needs N divisible by ``block``."""
+    n = L.shape[-1]
+    W = _inv_lower_blocked(L, block)
+    pw = 512 if n % 512 == 0 else block
+    T = L.new_zeros((n, n))
+    for b in range(0, n, pw):
+        for a in range(b, n, pw):
+            blk = _mm(W[a:, a:a + pw].T, W[a:, b:b + pw])
+            T[a:a + pw, b:b + pw] = blk.tril_() if a == b else blk
+    return T, W
+
+
 # ---------------------------------------------------------------------------
 # Wide TRSM: invert-then-multiply (trtri + one GEMM)
 # ---------------------------------------------------------------------------
@@ -600,35 +760,62 @@ def _wide_inverse(L: torch.Tensor) -> torch.Tensor:
     return _inv_lower_blocked(Lp, _BLOCK)[:n, :n]
 
 
+# The adjoints (``pallas_chol.py:1222-1268``) reuse the L⁻¹ of the forward
+# instead of running a second trtri.
+
+
 class _SolveLowerWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, B):
-        return _trmm_ll(_wide_inverse(L), B)
+        W = _wide_inverse(L)
+        X = _trmm_ll(W, B)
+        ctx.save_for_backward(W, X)
+        return X
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_BACKWARD_TODO.format("solve_lower_wide"))
+    def backward(ctx, Xbar):
+        # B̄ = L⁻ᵀ X̄, L̄ = −tril(B̄ Xᵀ)
+        W, X = ctx.saved_tensors
+        Bbar = _trmm_ul(W, Xbar)
+        Lbar = -torch.tril(_mm(Bbar, X.T)) if ctx.needs_input_grad[0] else None
+        return Lbar, Bbar
 
 
 class _SolveUpperWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, B):
-        return _trmm_ul(_wide_inverse(L), B)
+        W = _wide_inverse(L)
+        X = _trmm_ul(W, B)
+        ctx.save_for_backward(W, X)
+        return X
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_BACKWARD_TODO.format("solve_upper_wide"))
+    def backward(ctx, Xbar):
+        # B̄ = L⁻¹ X̄, L̄ = −tril(X B̄ᵀ)
+        W, X = ctx.saved_tensors
+        Bbar = _trmm_ll(W, Xbar)
+        Lbar = -torch.tril(_mm(X, Bbar.T)) if ctx.needs_input_grad[0] else None
+        return Lbar, Bbar
 
 
 class _CholSolveWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, B):
         W = _wide_inverse(L)
-        return _trmm_ul(W, _trmm_ll(W, B))
+        X = _trmm_ul(W, _trmm_ll(W, B))
+        ctx.save_for_backward(L, W, X)
+        return X
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(_BACKWARD_TODO.format("chol_solve_wide"))
+    def backward(ctx, Xbar):
+        # X = K⁻¹B, K = LLᵀ: B̄ = K⁻¹X̄; L̄ = −tril((B̄Xᵀ + XB̄ᵀ) L)
+        L, W, X = ctx.saved_tensors
+        S = _trmm_ul(W, _trmm_ll(W, Xbar))
+        Lbar = None
+        if ctx.needs_input_grad[0]:
+            M = _mm(S, X.T)
+            Lbar = -torch.tril(_mm(M + M.T, L))
+        return Lbar, S
 
 
 def solve_lower_wide(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,9 @@ __all__ = ["library", "build", "stream", "check", "LAUNCHES", "reset_launches"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = ("gram_tile.cu", "chol_inv_block.cu", "slab_factor.cu", "tri_inv_block.cu")
-_HEADERS = ("block_routines.cuh",)
+_SOURCES = ("gram_tile.cu", "chol_inv_block.cu", "slab_factor.cu", "tri_inv_block.cu",
+            "gram_bwd.cu", "logpdf_contraction.cu")
+_HEADERS = ("block_routines.cuh", "gram_sweep.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -42,13 +43,18 @@ _SIGNATURES = {
     "agp_slab_factor": (_P, _P, _P, _P, _I, _I, _P),
     # L, ld, block_stride, nb, B, out, stream
     "agp_tri_inv_block": (_P, _L, _L, _I, _I, _P, _P),
+    # x, z, C, ldc, params, xbar, partial, sums, n, m, d, family, symmetric, mode, stream
+    "agp_gram_bwd": (_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, ag, a, T, ldt, scal, xbar, partial, sums, n, d, q, family, stream
+    "agp_logpdf_contraction": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _LIB = None
 
 # launches of each kernel, counted by its wrapper where it launches it and
 # nowhere else (so a run can show that the main path went through it)
-LAUNCHES = {"gram_tile": 0, "slab_factor": 0, "chol_inv_block": 0, "tri_inv_block": 0}
+LAUNCHES = {"gram_tile": 0, "slab_factor": 0, "chol_inv_block": 0, "tri_inv_block": 0,
+            "logpdf_contraction": 0, "gram_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — ``GP(σ²·with_lengthscale(Matern32Kernel(),
-ℓ))(x, 0.1).logpdf(y)``, then ``posterior(fx, y).mean_and_var(x*)`` — at the
-full width of the exact-GP benchmark configuration (N = 8192, D = 8,
-M = 4096, f32) and at a ragged width (N = 4500: a 512-wide tail slab and a
-36-block row-panel trtri), checks both against an f64 ``torch.linalg``
-oracle on the card, holds each hand-written kernel against its plain torch
-version at the shapes the main path gives it, times the kernels with CUDA
-events and the end-to-end path on the host clock (each call ends in a
-device-to-host read), and traces one logpdf and one prediction with
-``torch.profiler`` for the device time by kernel and the device's busy share.
+Drives the port's main paths — serving: ``GP(σ²·with_lengthscale(
+Matern32Kernel(), ℓ))(x, 0.1).logpdf(y)``, then ``posterior(fx, y)
+.mean_and_var(x*)``; training: ``torch.autograd.grad`` of the logpdf and of
+the prediction with respect to σ², ℓ and the noise (caller tensors), and
+five Adam steps of ``fit(nlml(...))`` — at the full width of the exact-GP
+benchmark configuration (N = 8192, D = 8, M = 4096, f32) and at a ragged
+width (N = 4500: a 512-wide tail slab and a 36-block row-panel trtri).
+Checks values and gradients against f64 ``torch.linalg`` oracles on the
+card, holds each hand-written kernel against its plain torch version at
+the shapes the main path gives it (the backward kernels also bit for bit
+against a second call), times the kernels with CUDA events and the
+end-to-end paths on the host clock (each call ends in a device-to-host
+read), and traces one logpdf, one prediction and the gradient of each
+with ``torch.profiler`` for the device time by kernel and the device's
+busy share.
 
 Usage (from the root of a checkout): ``python3 chip_smoke.py [--seed S]``.
 It builds the kernels from ``abstractgps_tpu_torch/csrc`` first. It exits
@@ -45,7 +50,12 @@ KERNELS = {
                        "abstractgps_tpu/ops/pallas_chol.py:179"),
     "tri_inv_block": ("abstractgps_tpu_torch/csrc/tri_inv_block.cu",
                       "abstractgps_tpu/ops/pallas_chol.py:405"),
+    "logpdf_contraction": ("abstractgps_tpu_torch/csrc/logpdf_contraction.cu",
+                           "abstractgps_tpu/ops/pallas_gram.py:359"),
+    "gram_bwd": ("abstractgps_tpu_torch/csrc/gram_bwd.cu",
+                 "abstractgps_tpu/ops/pallas_gram.py:185"),
 }
+SIGMA2_BUDGET = 5e-3  # the JAX package's σ²-gradient budget against f64
 
 
 def reset_launches():
@@ -81,6 +91,14 @@ def make_kernel(s2: float, ell: float, device, dtype):
     return k.to(device=device, dtype=dtype)
 
 
+def caller_theta(s2: float, ell: float, device, dtype):
+    """σ², ℓ and the noise as the caller's own tensors that require grad."""
+    import torch
+
+    return [torch.tensor(v, dtype=dtype, device=device, requires_grad=True)
+            for v in (s2, ell, NOISE)]
+
+
 NOISE = 0.1
 
 
@@ -99,6 +117,28 @@ def run_path(kernel, x, y, xs):
     mu, var = post.mean_and_var(xs)
     counts["pred"] = read_launches()
     return (lp.detach(), mu.detach(), var.detach(), post), counts
+
+
+def run_grad_path(theta, x, y, xs=None):
+    """The training path: ``torch.autograd.grad`` of the logpdf (``xs`` is
+    None) or of ``mean.sum() + var.sum()`` of the prediction at ``xs`` with
+    respect to ``theta`` = (σ², ℓ, noise). Returns the gradient (f64 on
+    the host) and the kernel launches of the run, counted from 0."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+
+    s2, ell, noise = theta
+    reset_launches()
+    fx = agt.GP(s2 * agt.with_lengthscale(agt.Matern32Kernel(), ell))(x, noise)
+    if xs is None:
+        out = fx.logpdf(y)
+    else:
+        mu, var = agt.posterior(fx, y).mean_and_var(xs)
+        out = mu.sum() + var.sum()
+    grads = torch.autograd.grad(out, theta)
+    torch.cuda.synchronize()
+    return torch.stack(grads).double().cpu(), read_launches()
 
 
 def total_launches(counts: dict) -> dict:
@@ -132,6 +172,70 @@ def oracle_f64(s2, ell, x, y, xs):
         v = v / v.norm()
     kappa = float(v @ (K @ v)) * 1.01 / NOISE
     return float(lp), mu, var, kappa
+
+
+def _matern32_f64(r2, s2, ell):
+    """σ²·Matérn-3/2 from squared distances r2 of the unscaled inputs."""
+    import torch
+
+    t = math.sqrt(3.0) * torch.sqrt(r2) / ell
+    return s2 * (1.0 + t) * torch.exp(-t)
+
+
+def grad_oracle_f64(s2, ell, x, y, xs=None):
+    """Dense f64 reference on the card, written apart from the port: the
+    Matérn-3/2 gram from f64 distances, ``torch.linalg.cholesky``, and
+    autograd of the logpdf (or of ``mean.sum() + var.sum()`` at ``xs``)
+    with respect to (σ², ℓ, noise)."""
+    import torch
+
+    dev = x.device
+    th = [torch.tensor(v, dtype=torch.float64, device=dev, requires_grad=True)
+          for v in (s2, ell, NOISE)]
+    x64, y64 = x.double(), y.double()
+    n = x64.shape[0]
+    with torch.no_grad():
+        r2 = torch.cdist(x64, x64).square_()
+        r2.fill_diagonal_(0.0)
+    K = _matern32_f64(r2, th[0], th[1]) + th[2] * torch.eye(n, dtype=torch.float64,
+                                                            device=dev)
+    L = torch.linalg.cholesky(K)
+    if xs is None:
+        z = torch.linalg.solve_triangular(L, y64[:, None], upper=False)
+        out = -0.5 * (n * math.log(2 * math.pi) + 2 * torch.log(torch.diagonal(L)).sum()
+                      + (z * z).sum())
+    else:
+        with torch.no_grad():
+            r2s = torch.cdist(x64, xs.double()).square_()
+        Ks = _matern32_f64(r2s, th[0], th[1])
+        alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+        V = torch.linalg.solve_triangular(L, Ks, upper=False)
+        out = (Ks.T @ alpha).sum() + torch.clamp(th[0] - (V * V).sum(0), min=0.0).sum()
+    grads = torch.autograd.grad(out, th)
+    return torch.stack(grads).detach().cpu()
+
+
+def check_grads(tag, got, want, kappa, budget=True):
+    """f32 gradient vs the f64 oracle, component by component (σ², ℓ,
+    noise). Tolerance: each component is a contraction of ½(ααᵀ − K⁻¹)
+    (chained through the prediction's solves) whose f32 rounding is ≲ κ·eps
+    relative, as for the forward; we allow 10·κ·eps. For ∇logpdf the σ²
+    component is also set beside the JAX package's 5e-3 budget (which the
+    JAX package pins for ∇logpdf only)."""
+    import torch
+
+    tol = 10.0 * kappa * EPS32
+    rel = ((got - want).abs() / want.abs()).tolist()
+    finite = bool(torch.isfinite(got).all())
+    ok = finite and max(rel) <= tol
+    print(f"[{tag}] grad (s2, ell, noise) {[round(v, 6) for v in got.tolist()]} "
+          f"(f64 {[round(v, 6) for v in want.tolist()]}); rel errors "
+          f"{json.dumps(dict(zip(('s2', 'ell', 'noise'), rel)))}; tol {tol:.3e}; "
+          + (f"s2 rel error {rel[0]:.3e} vs budget {SIGMA2_BUDGET:g} "
+             f"({'within' if rel[0] <= SIGMA2_BUDGET else 'OVER'}); " if budget else "")
+          + f"finite {finite}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
 
 
 def check_against_oracle(tag, lp, mu, var, ref):
@@ -177,6 +281,23 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# operations of agp::map_vjp per family id (csrc/gram_sweep.cuh), a sqrt,
+# exp, pow, log or trig counting as one and constants hoisted
+MAP_VJP_FLOPS = {0: 3, 1: 4, 2: 6, 3: 11, 4: 9, 5: 9, 6: 6}
+
+
+def sweep_flops(n, m, d, family, sym, cot_flops, epi_flops):
+    """Operations a backward sweep over the (n, m) grid needs: per pair
+    (each entry of the lower triangle when ``sym``, else each entry) d²
+    (2D + 3), the cotangent entry (``cot_flops``), the map VJP and the
+    epilogue (``epi_flops``; + 2 for Σ C·∂g/∂p of a map hyperparameter);
+    per ordered entry the x̄ update rowsum(w)∘x − w·z (2D + 1)."""
+    pairs = n * (n + 1) / 2 if sym else n * m
+    per_pair = 2 * d + 3 + cot_flops + MAP_VJP_FLOPS[family] + epi_flops + (
+        2 if family in (4, 5) else 0)
+    return pairs * per_pair + n * m * (2.0 * d + 1)
 
 
 def _tol_rel(kappa: float) -> float:
@@ -283,23 +404,140 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     return recs
 
 
+def backward_kernel_checks(contr_in, bwd_in):
+    """Kernels 5 and 6 on the inputs the gradient paths gave them:
+    ``contr_in`` the arguments of the first ``logpdf_contraction`` call of
+    the full-width ∇logpdf, ``bwd_in`` those of the first ``gram_bwd`` call
+    of each mode in the full-width ∇prediction. Each is held against its
+    plain version, called twice (the results must agree bit for bit), timed
+    beside its bound."""
+    import torch
+
+    from abstractgps_tpu_torch.ops import fused_gram
+    from abstractgps_tpu_torch.ops.precision import full_f32
+
+    recs = {}
+
+    def compare(name, got, want, xbar_mag, m, shape):
+        # x̄ = xscale·Σ_c w_rc (x_r − z_c) sums m f32 terms per entry, in
+        # another order and form than the plain version (which takes
+        # rowsum(w)·x − w·z, as the TPU kernel did). Rounding of two such
+        # sums differs by ~√m·eps times the sum of the terms' magnitudes
+        # (``xbar_mag``, entry by entry); the largest ratio seen on the card
+        # at m = 8192 is 0.35 of that, so we allow 2·√m·eps·Σ|terms|. A
+        # tile of 64 terms skipped or counted twice moves an entry by
+        # ~8/m·Σ|terms| with random signs, ~90× this tolerance at m = 8192.
+        # The scalars are f64 sums of f32 products that differ by a few
+        # ulp: 1e-4 relative.
+        *scalars, xb = got
+        *scalars_w, xb_w = want
+        errs = [float((g_.double() - w_.double()).abs()) for g_, w_ in zip(scalars, scalars_w)]
+        ok = all(e <= 1e-4 * abs(float(w_)) for e, w_ in zip(errs, scalars_w))
+        dx = (xb - xb_w).abs()
+        tol = (2.0 * math.sqrt(m) * EPS32 * xbar_mag).clamp_min(torch.finfo(torch.float32).tiny)
+        ratio = float((dx / tol).max())
+        errs.append(float(dx.max()))
+        ok = ok and ratio <= 1.0
+        print(f"[kernel {name}] shape {shape}: abs errors {[f'{e:.3e}' for e in errs]} "
+              f"(scalars: tol 1e-4 relative; x̄: largest error / tolerance {ratio:.3e}, "
+              f"tol 1; max error / max|x̄| {errs[-1] / float(xb_w.abs().max()):.3e}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        return max(errs), ok
+
+    def xbar_mag(w, x_, z_, xscale):
+        w = w.abs()
+        with full_f32():
+            return xscale * (w.sum(1, keepdim=True) * x_.abs() + w @ z_.abs())
+
+    def repeat(fn, name):
+        a, b = fn(), fn()
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        print(f"[kernel {name}] two calls on the same inputs identical bit for bit: {same}",
+              flush=True)
+        return a, same
+
+    def record(name, err, ok, ms, plain_ms, nbytes, flops, shape):
+        b, by = bound_ms(nbytes, flops)
+        print(f"[kernel {name}] shape {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library None ms, bound {b:.4f} ms ({by})", flush=True)
+        recs.setdefault(name, dict(max_abs_err=err, tol=None, ms=ms, plain_ms=plain_ms,
+                                   library_ms=None, bound_ms=b, bound_by=by, ok=ok,
+                                   shape=shape))
+        recs[name]["ok"] = recs[name]["ok"] and ok
+
+    # logpdf_contraction at the full-width ∇logpdf. Operations: C and g(d²)
+    # are symmetric, so d², C (2q + 3) and the map VJP are needed once per
+    # entry of the lower triangle, x̄′ once per ordered entry; bytes: T's
+    # lower triangle, x′, α, α·ḡ read once, x̄′ written once
+    xp, s2, ag, a, gsum, T, fam, params = contr_in
+    n, d = xp.shape
+    q = a.shape[1]
+    got, same = repeat(lambda: fused_gram.logpdf_contraction(*contr_in), "logpdf_contraction")
+    pbuf = fused_gram._params_buffer(params, xp.device)
+    want = fused_gram.logpdf_contraction_plain(xp, s2, ag, a, gsum, T, fam, pbuf)
+    Tl = torch.tril(T)
+    with full_f32():
+        Ct = 0.5 * (ag @ a.T - gsum * (Tl + Tl.T - torch.diag(torch.diagonal(Tl))))
+    _, dg, _ = fused_gram._map_vjp(fam, fused_gram._sqdist_plain(xp, xp, True), pbuf)
+    mag = xbar_mag(Ct * s2 * dg, xp, xp, 4.0)
+    del Tl, Ct, dg
+    err, ok = compare("logpdf_contraction", got, want, mag, n, [n, d, q])
+    ms = cuda_ms(lambda: fused_gram.logpdf_contraction(*contr_in), 20)
+    plain = cuda_ms(lambda: fused_gram.logpdf_contraction_plain(xp, s2, ag, a, gsum, T, fam,
+                                                                pbuf), 3)
+    record("logpdf_contraction", err, ok and same, ms, plain,
+           4.0 * (n * (n + 1) / 2 + 2 * n * d + 2 * n * q),
+           sweep_flops(n, n, d, fam, True, 2 * q + 3, 4), [n, d, q])
+
+    # gram_bwd in each mode of the ∇prediction: the symmetric single sweep
+    # (cholesky_gram's backward, C + Cᵀ, the sum once per pair) first, then
+    # the cross gram's two passes; bytes: the cotangent read once, x, z read
+    # and x̄ written once
+    for mode in ("sym", "plain", "transpose"):
+        x_, z_, C, fam, params, sym, _ = bwd_in[mode]
+        n, d = x_.shape
+        m = z_.shape[0]
+        got, same = repeat(lambda: fused_gram.gram_bwd(*bwd_in[mode]), f"gram_bwd {mode}")
+        pbuf = fused_gram._params_buffer(params, x_.device)
+        want = fused_gram.gram_bwd_plain(x_, z_, C, fam, pbuf, sym, mode)
+        Ct = C.T if mode == "transpose" else (C + C.T if mode == "sym" else C)
+        _, dg, _ = fused_gram._map_vjp(fam, fused_gram._sqdist_plain(x_, z_, sym), pbuf)
+        mag = xbar_mag(Ct * dg, x_, z_, 2.0)
+        del Ct, dg
+        # (x̄, p̄) → compare as (p̄, x̄)
+        err, ok = compare(f"gram_bwd {mode}", got[::-1], want[::-1], mag, m, [n, m, d])
+        ms = cuda_ms(lambda: fused_gram.gram_bwd(*bwd_in[mode]), 20)
+        plain = cuda_ms(lambda: fused_gram.gram_bwd_plain(x_, z_, C, fam, pbuf, sym, mode), 3)
+        record("gram_bwd", err, ok and same, ms, plain, 4.0 * (n * m + (2 * n + m) * d),
+               sweep_flops(n, m, d, fam, sym, int(sym), 1), [n, m, d])
+    return recs
+
+
 class capture_first_input:
-    """Record a clone of the first argument of the first call of a
-    blocked_chol kernel wrapper during a run (the wrapper still runs and
-    counts its launch)."""
+    """Record clones of the arguments of the first call of a kernel wrapper
+    during a run, one record per value of ``key(args)`` (the wrapper still
+    runs and counts its launch). ``value`` is the first argument of the
+    first call."""
 
-    def __init__(self, name):
-        from abstractgps_tpu_torch.ops import blocked_chol
+    def __init__(self, name, module="blocked_chol", key=lambda args: None):
+        import importlib
 
-        self.mod, self.name = blocked_chol, name
-        self.orig = getattr(blocked_chol, name)
-        self.value = None
+        self.mod = importlib.import_module(f"abstractgps_tpu_torch.ops.{module}")
+        self.name, self.key = name, key
+        self.orig = getattr(self.mod, name)
+        self.calls = {}
+
+    @property
+    def value(self):
+        return next(iter(self.calls.values()))[0] if self.calls else None
 
     def __enter__(self):
-        def spy(A, *rest):
-            if self.value is None:
-                self.value = A.detach().clone()
-            return self.orig(A, *rest)
+        def spy(*args):
+            k = self.key(args)
+            if k not in self.calls:
+                self.calls[k] = tuple(a.detach().clone() if hasattr(a, "detach") else a
+                                      for a in args)
+            return self.orig(*args)
 
         setattr(self.mod, self.name, spy)
         return self
@@ -393,27 +631,72 @@ def main(argv=None) -> int:
     with capture_first_input("chol_inv_block") as block_in:
         (lp_r, mu_r, var_r, _), ragged_counts = run_path(kernel_r, xr, yr, xsr)
     torch.cuda.synchronize()
-    full, ragged = total_launches(full_counts), total_launches(ragged_counts)
-    launches = {k: full[k] + ragged[k] for k in full}
-    print(f"[launches] full width {json.dumps(full_counts)}; "
-          f"ragged {json.dumps(ragged_counts)}", flush=True)
-    need_full = ("gram_tile", "slab_factor", "tri_inv_block")
-    if not all(full[k] > 0 for k in need_full) or not all(v > 0 for v in ragged.values()):
-        print("[launches] FAIL: a kernel of the path was not launched", flush=True)
+    # ---- the training path: ∇logpdf at full width and ragged, ∇prediction,
+    # then five Adam steps of MLE-II at full width -------------------------
+    theta = caller_theta(s2, ell, dev, f32)
+    with capture_first_input("logpdf_contraction", "fused_gram") as contr_in:
+        g_full, counts_g = run_grad_path(theta, x, y)
+    g_ragged, counts_gr = run_grad_path(caller_theta(s2r, ellr, dev, f32), xr, yr)
+    with capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as bwd_in:
+        g_pred, counts_gp = run_grad_path(theta, x, y, xs)
+
+    import abstractgps_tpu_torch.params as P
+
+    def build_fx(t, xx):
+        return agt.GP(t["s2"] * agt.with_lengthscale(agt.Matern32Kernel(), t["ell"]))(
+            xx, t["noise"])
+
+    theta0 = {k: P.positive(torch.tensor(v, dtype=f32, device=dev))
+              for k, v in (("s2", s2), ("ell", ell), ("noise", NOISE))}
+    reset_launches()
+    fit_res = agt.fit(agt.nlml(build_fx, x, y), theta0, num_steps=5)
+    hist = fit_res.history.double().cpu()
+    counts_fit = read_launches()
+    fit_ok = bool(torch.isfinite(hist).all()) and float(hist[-1]) <= float(hist[0])
+    print(f"[fit] 5 Adam steps at N={N}: loss history {hist.tolist()}; "
+          f"{'ok' if fit_ok else 'FAIL'}", flush=True)
+
+    runs = {"logpdf full": full_counts["logpdf"], "pred full": full_counts["pred"],
+            "logpdf ragged": ragged_counts["logpdf"], "pred ragged": ragged_counts["pred"],
+            "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
+            "fit full": counts_fit}
+    launches = total_launches(runs)
+    print(f"[launches] {json.dumps(runs)}", flush=True)
+    need = {"logpdf full": ("gram_tile", "slab_factor"),
+            "pred full": ("gram_tile", "slab_factor", "tri_inv_block"),
+            "logpdf ragged": ("gram_tile", "slab_factor", "chol_inv_block"),
+            "pred ragged": ("gram_tile", "slab_factor", "chol_inv_block", "tri_inv_block"),
+            "grad full": ("gram_tile", "slab_factor", "tri_inv_block", "logpdf_contraction"),
+            "grad ragged": ("chol_inv_block", "tri_inv_block", "logpdf_contraction"),
+            "pred grad full": ("gram_tile", "slab_factor", "tri_inv_block", "gram_bwd"),
+            "fit full": ("slab_factor", "tri_inv_block", "logpdf_contraction")}
+    missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
+    missing = {r: ks for r, ks in missing.items() if ks}
+    if missing or set(bwd_in.calls) != {"sym", "plain", "transpose"} or not contr_in.calls:
+        print(f"[launches] FAIL: a kernel of the path was not launched: {missing}", flush=True)
         ok = False
 
     with torch.no_grad():
-        ok_f = check_against_oracle(f"full N={N} M={M}", lp, mu, var,
-                                    oracle_f64(s2, ell, x, y, xs))
+        ref_full = oracle_f64(s2, ell, x, y, xs)
+        ref_ragged = oracle_f64(s2r, ellr, xr, yr, xsr)
+        ok_f = check_against_oracle(f"full N={N} M={M}", lp, mu, var, ref_full)
         ok_r = check_against_oracle(f"ragged N={N_RAGGED} M={M_RAGGED}", lp_r, mu_r,
-                                    var_r, oracle_f64(s2r, ellr, xr, yr, xsr))
+                                    var_r, ref_ragged)
     shapes_ok = mu.shape == (M,) and var.shape == (M,) and mu_r.shape == (M_RAGGED,)
-    ok = ok and ok_f and ok_r and shapes_ok
+    ok_g = check_grads(f"grad full N={N}", g_full, grad_oracle_f64(s2, ell, x, y),
+                       ref_full[3])
+    ok_gr = check_grads(f"grad ragged N={N_RAGGED}", g_ragged,
+                        grad_oracle_f64(s2r, ellr, xr, yr), ref_ragged[3])
+    ok_gp = check_grads(f"pred grad full N={N} M={M}", g_pred,
+                        grad_oracle_f64(s2, ell, x, y, xs), ref_full[3], budget=False)
+    torch.cuda.empty_cache()
+    ok = ok and ok_f and ok_r and shapes_ok and ok_g and ok_gr and ok_gp and fit_ok
 
     # ---- each kernel against its plain version; times ---------------------
     with torch.no_grad():
         recs = kernel_checks(kernel, x, xs, post.data.L.detach(), slab_in.value,
                              block_in.value)
+        recs.update(backward_kernel_checks(contr_in.calls[None], bwd_in.calls))
     ok = ok and all(r["ok"] for r in recs.values())
 
     # ---- end to end ----------------------------------------------------------
@@ -437,12 +720,33 @@ def main(argv=None) -> int:
     for _ in range(3):
         pred_once()
     pred_s = (time.perf_counter() - t0) / 3
+
+    def grad_once():
+        return run_grad_path(theta, x, y)
+
+    def pred_grad_once():
+        return run_grad_path(theta, x, y, xs)
+
+    grad_once()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        grad_once()
+    grad_s = (time.perf_counter() - t0) / reps
+    pred_grad_once()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pred_grad_once()
+    pred_grad_s = (time.perf_counter() - t0) / 3
     print(f"[e2e] N={N} D={D} M={M} f32: logpdf {logpdf_s * 1e3:.3f} ms "
           f"({1.0 / logpdf_s:.3f} evals/s); pred {pred_s * 1e3:.3f} ms "
-          f"({1.0 / pred_s:.3f} evals/s); peak device memory "
+          f"({1.0 / pred_s:.3f} evals/s); grad {grad_s * 1e3:.3f} ms "
+          f"({1.0 / grad_s:.3f} evals/s); pred grad {pred_grad_s * 1e3:.3f} ms "
+          f"({1.0 / pred_grad_s:.3f} evals/s); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_breakdown("logpdf", logpdf_once)
     profile_breakdown("pred", pred_once)
+    profile_breakdown("grad", grad_once, top=14)
+    profile_breakdown("pred grad", pred_grad_once, top=14)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():

@@ -10,8 +10,10 @@ suite's conftest, so it also runs on a machine that has only PyTorch:
 Tolerances: the kernel and its plain version run the same algorithm in f32
 with sums in another order, so they differ by rounding, ~κ·eps of the
 largest entry; the SPD inputs here have κ ≲ 40, and 1e-4 of the largest
-entry bounds that with room. The slice test holds the f32 kernel path
-against an f64 ``torch.linalg`` oracle on the same card at 10·κ·eps.
+entry bounds that with room. The slice and gradient tests hold the f32
+kernel paths against f64 ``torch.linalg`` oracles on the same card at
+10·κ·eps. The backward kernels (``gram_bwd``, ``logpdf_contraction``) must
+also return the same bits on a second call.
 """
 
 import math
@@ -145,7 +147,8 @@ def test_slice_on_the_card_matches_f64(cuda, gen):
     lp = fx.logpdf(y).detach()
     mu, var = agt.posterior(fx, y).mean_and_var(xs)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in cuda_ops.LAUNCHES.values()), cuda_ops.LAUNCHES
+    forward = ("gram_tile", "slab_factor", "chol_inv_block", "tri_inv_block")
+    assert all(cuda_ops.LAUNCHES[k] > 0 for k in forward), cuda_ops.LAUNCHES
 
     k64 = k.to(torch.float64)
     with torch.no_grad():
@@ -165,3 +168,93 @@ def test_slice_on_the_card_matches_f64(cuda, gen):
     _close(mu.detach().double(), mu64, rel=tol)
     _close(var.detach().double(), var64, rel=tol)
     assert float(var.detach().min()) >= 0.0
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels: gram_bwd (the gram VJP) and logpdf_contraction
+# ---------------------------------------------------------------------------
+
+
+def _params(family, device):
+    return (torch.tensor(1.3, device=device),) if family in (4, 5) else ()
+
+
+@pytest.mark.parametrize("family", sorted(fused_gram.FAMILIES))
+@pytest.mark.parametrize("mode", ["plain", "transpose", "sym"])
+def test_gram_bwd_matches_plain(cuda, gen, family, mode):
+    n, m = 300, (300 if mode == "sym" else 190)
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    z = x if mode == "sym" else torch.as_tensor(gen.uniform(size=(m, 8)),
+                                                dtype=torch.float32, device=cuda)
+    shape = (m, n) if mode == "transpose" else (n, m)
+    C = torch.as_tensor(gen.normal(size=shape), dtype=torch.float32, device=cuda)
+    params = _params(family, cuda)
+    pbuf = fused_gram._params_buffer(params, cuda)
+    sym = mode == "sym"
+    got = _launched("gram_bwd", lambda: fused_gram.gram_bwd(x, z, C, family, params, sym, mode))
+    want = fused_gram.gram_bwd_plain(x, z, C, family, pbuf, sym, mode)
+    # x̄ sums ~m f32 terms in another order and form (Σ w(x − z) against
+    # rowsum(w)·x − w·z): ≲ m·eps of the terms, under 1e-4 of the largest
+    # row; the hyperparameter bar is an f64 sum of f32 products that differ
+    # by a few ulp (the card's expf/powf against torch's)
+    scale = float(want[0].abs().max()) + 1e-6
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4 * scale
+    assert abs(float(got[1]) - float(want[1])) <= 1e-4 * (abs(float(want[1])) + 1e-6)
+    again = fused_gram.gram_bwd(x, z, C, family, params, sym, mode)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("family", [2, 4])
+def test_logpdf_contraction_matches_plain(cuda, gen, family):
+    n, q = 333, 2  # a ragged edge, q > 1
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    L = torch.linalg.cholesky(_spd(gen, n, cuda))
+    Linv = torch.linalg.inv(L)
+    T = torch.tril(Linv.T @ Linv) + torch.triu(torch.full((n, n), 1e3, device=cuda), 1)
+    a = torch.as_tensor(gen.normal(size=(n, q)), dtype=torch.float32, device=cuda)
+    gbar = torch.tensor([0.7, -1.2], device=cuda)
+    s2, gsum = torch.tensor(1.3, device=cuda), gbar.sum()
+    params = _params(family, cuda)
+    got = _launched("logpdf_contraction", lambda: fused_gram.logpdf_contraction(
+        x, s2, a * gbar, a, gsum, T, family, params))
+    want = fused_gram.logpdf_contraction_plain(x, s2, a * gbar, a, gsum, T, family,
+                                               fused_gram._params_buffer(params, cuda))
+    for g_, w_ in zip(got, want):  # as in test_gram_bwd_matches_plain
+        scale = float(w_.abs().max()) + 1e-6
+        assert float((g_ - w_).abs().max()) <= 1e-4 * scale
+    again = fused_gram.logpdf_contraction(x, s2, a * gbar, a, gsum, T, family, params)
+    assert all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+
+
+def test_grad_on_the_card_matches_f64(cuda, gen):
+    # ∇ logpdf and ∇ of the prediction at N = 2100 through kernels 1-6,
+    # against autograd of a dense f64 formulation on the same card
+    n, m = 2100, 300
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
+    xs = torch.as_tensor(gen.uniform(size=(m, 8)), dtype=torch.float32, device=cuda)
+
+    def grads(dtype, which):
+        th = [torch.tensor(v, dtype=dtype, device=cuda, requires_grad=True)
+              for v in (1.1, 0.9, 0.1)]
+        k = th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1])
+        fx = agt.GP(k)(x.to(dtype), th[2])
+        if which == "logpdf":
+            out = fx.logpdf(y.to(dtype))
+        else:
+            mu, var = agt.posterior(fx, y.to(dtype)).mean_and_var(xs.to(dtype))
+            out = mu.sum() + var.sum()
+        return torch.stack(torch.autograd.grad(out, th)).double()
+
+    for which, names in (("logpdf", ("logpdf_contraction", "tri_inv_block")),
+                         ("pred", ("gram_bwd", "tri_inv_block"))):
+        cuda_ops.reset_launches()
+        got = grads(torch.float32, which)
+        torch.cuda.synchronize()
+        assert all(cuda_ops.LAUNCHES[k] > 0 for k in names), cuda_ops.LAUNCHES
+        want = grads(torch.float64, which)
+        # κ(K) ≤ (n·σ² + noise)/noise; first-order f32 rounding of the
+        # factor, inverse and contractions: 10·κ·eps of the largest entry
+        tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
+        assert torch.isfinite(got).all()
+        _close(got, want, rel=tol)

@@ -8,6 +8,10 @@ the port against the JAX package.
   row-panel trtri behind the wide prediction solves; f32 tolerance ~1e-5
   relative, as in tests/test_pallas_kernels.py.
 
+- The calls whose backward was not ported in the first slice (the fused
+  logpdf, the wide solves, the blocked Cholesky) against the gradients of
+  their dense formulations.
+
 The JAX side is computed once per module: its interpret-mode tracing takes
 seconds per call.
 """
@@ -22,7 +26,7 @@ from test_goldens import (
     GOLDEN_POST_VAR,
     GOLDEN_POSTPRED_LOGPDF,
 )
-from torch_port_helpers import kernel_tree, small_kernel_paths
+from torch_port_helpers import kernel_tree, small_kernel_paths, spd
 
 import abstractgps_tpu as agp
 import abstractgps_tpu_torch as agt
@@ -187,21 +191,51 @@ def test_slice_f32_matches_f64_oracle():
     np.testing.assert_allclose(_n(var), _n(var64), rtol=0, atol=1e-4 * _n(var64).max())
 
 
-def test_backward_not_ported_raises():
+def _dense_solve(which):
+    """The dense formulations of the wide solves and of the Cholesky."""
+    lower = lambda L, B: torch.linalg.solve_triangular(L, B, upper=False)  # noqa: E731
+    upper = lambda L, B: torch.linalg.solve_triangular(L.T, B, upper=True)  # noqa: E731
+    return {"solve_lower_wide": lower, "solve_upper_wide": upper,
+            "chol_solve_wide": lambda L, B: upper(L, lower(L, B))}[which]
+
+
+@pytest.mark.parametrize("call", ["logpdf", "solve_lower_wide", "solve_upper_wide",
+                                  "chol_solve_wide", "pallas_cholesky"])
+def test_backward_matches_dense_formulation(call):
+    # the calls whose backward raised before the training path was ported
+    # now return gradients, equal to those of the dense formulation (f32,
+    # well-conditioned inputs: 2e-5 relative; the logpdf against f64 at the
+    # f32 gradient tolerance of tests/test_pallas_kernels.py:263)
     x, y, _ = _data()
     with small_kernel_paths():
-        k = agt.kernel_from_numpy(kernel_tree(_jax_kernel()), dtype=torch.float32)
-        fx = agt.GP(k)(torch.as_tensor(x), 0.1)
-        lp = fx.logpdf(torch.as_tensor(y))
-        assert lp.requires_grad
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if call == "logpdf":
+            k = agt.kernel_from_numpy(kernel_tree(_jax_kernel()), dtype=torch.float32)
+            lp = agt.GP(k)(torch.as_tensor(x), 0.1).logpdf(torch.as_tensor(y))
             lp.backward()
-        L = torch.linalg.cholesky(torch.eye(64) * 2.0).requires_grad_()
-        B = torch.ones(64, 20)
-        for fn in (blocked_chol.solve_lower_wide, blocked_chol.solve_upper_wide,
-                   blocked_chol.chol_solve_wide):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fn(L, B).sum().backward()
-        A = (torch.eye(64) * 2.0).requires_grad_()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocked_chol.pallas_cholesky(A).sum().backward()
+            k64 = agt.kernel_from_numpy(kernel_tree(_jax_kernel()))
+            agt.GP(k64)(torch.as_tensor(x, dtype=torch.float64), 0.1).logpdf(
+                torch.as_tensor(y, dtype=torch.float64)).backward()
+            for p, p64 in zip(k.parameters(), k64.parameters()):
+                np.testing.assert_allclose(_n(p.grad), _n(p64.grad), rtol=2e-3, atol=2e-4)
+            return
+        rng = np.random.default_rng(3)
+        if call == "pallas_cholesky":
+            A = torch.as_tensor(spd(rng, 64), dtype=torch.float32)
+            w = torch.as_tensor(rng.normal(size=(64, 64)), dtype=torch.float32)
+            got, want = (torch.autograd.grad(torch.sum(f(A_) * w), A_)[0]
+                         for f, A_ in ((blocked_chol.pallas_cholesky, A.clone().requires_grad_()),
+                                       (torch.linalg.cholesky, A.clone().requires_grad_())))
+            want = 0.5 * (want + want.T)  # the JAX rule's symmetric Ā
+            np.testing.assert_allclose(_n(got), _n(want), rtol=2e-5, atol=2e-5 * float(want.abs().max()))
+            return
+        L = torch.linalg.cholesky(torch.as_tensor(spd(rng, 64), dtype=torch.float32))
+        B = torch.as_tensor(rng.normal(size=(64, 20)), dtype=torch.float32)
+        w = torch.as_tensor(rng.normal(size=(64, 20)), dtype=torch.float32)
+        grads = []
+        for f in (getattr(blocked_chol, call), _dense_solve(call)):
+            L_, B_ = L.clone().requires_grad_(), B.clone().requires_grad_()
+            grads.append(torch.autograd.grad(torch.sum(f(L_, B_) * w), [L_, B_]))
+        for got, want in zip(*grads):
+            want = torch.tril(want) if want.shape == L.shape else want
+            np.testing.assert_allclose(_n(torch.tril(got) if got.shape == L.shape else got),
+                                       _n(want), rtol=2e-5, atol=2e-5 * float(want.abs().max()))

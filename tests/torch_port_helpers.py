@@ -54,3 +54,22 @@ def spd(rng, n):
     """A well-conditioned SPD matrix (float64 numpy)."""
     X = rng.normal(size=(n, n + 8))
     return X @ X.T / (n + 8) + 0.5 * np.eye(n)
+
+
+def param_tree(tree):
+    """Nested description of a tagged JAX parameter tree (``Positive.raw``,
+    ``Bounded.raw/lo/hi``, ``Fixed.val``, plain arrays) for
+    ``abstractgps_tpu_torch.params_from_numpy``."""
+    from abstractgps_tpu import params as P
+
+    if isinstance(tree, P.Positive):
+        return {"type": "Positive", "raw": np.asarray(tree.raw)}
+    if isinstance(tree, P.Bounded):
+        return {"type": "Bounded", "raw": np.asarray(tree.raw), "lo": tree.lo, "hi": tree.hi}
+    if isinstance(tree, P.Fixed):
+        return {"type": "Fixed", "val": tree.val}
+    if isinstance(tree, dict):
+        return {k: param_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(param_tree(v) for v in tree)
+    return np.asarray(tree)
