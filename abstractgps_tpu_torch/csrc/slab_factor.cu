@@ -86,20 +86,19 @@ cudaError_t gemm_nt(int M, int N, int K, const float* A, long lda, const float* 
 // S: the W x W slab (read only). work: W x W scratch that the trailing updates overwrite.
 extern "C" int agp_slab_factor(const float* S, float* L, float* Winv, float* work, int W,
                                int B, cudaStream_t stream) {
-  if (B <= 0 || B > agp::kMaxBlock || W <= 0 || W % B) return (int)cudaErrorInvalidValue;
-  const int smem = agp::block_smem_bytes(B);
-  cudaError_t err = cudaFuncSetAttribute(agp::factor_invert_block_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemcpyAsync(work, S, (size_t)W * W * sizeof(float), cudaMemcpyDeviceToDevice,
-                        stream);
+  // the block routine zeroes the slab's upper triangle in float4 stores
+  if (B <= 0 || B > agp::kMaxBlock || B % agp::kGroup || W <= 0 || W % B ||
+      reinterpret_cast<size_t>(L) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemcpyAsync(work, S, (size_t)W * W * sizeof(float),
+                                    cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return (int)err;
   const long ld = W;
   for (int k = 0; k < W / B; ++k) {
     const long r0 = (long)k * B;
     const int rest = W - (int)r0 - B;
     float* Wk = Winv + r0 * B;
-    agp::factor_invert_block_kernel<<<1, agp::kBlockThreads, smem, stream>>>(
+    agp::factor_block_kernel<true><<<1, agp::kGroupThreads, 0, stream>>>(
         work + r0 * ld + r0, ld, L + r0 * ld + r0, ld, Wk, B, rest);
     err = cudaGetLastError();
     if (err != cudaSuccess || rest == 0) return (int)err;

@@ -12,7 +12,7 @@ exists in device memory, and the whitening solve of the logpdf rides the
 sweep (``gram_logpdf_core``). The wide solves are trtri + TRMM: a doubling
 triangular inverse whose diagonal blocks come from ``tri_inv_block``.
 
-The three hand-written kernels of this module (``csrc/``) each have a plain
+The four hand-written kernels of this module (``csrc/``) each have a plain
 torch version beside them: a CUDA tensor launches the kernel, a CPU tensor
 takes the plain version. The panel GEMMs, doubling merges and TRMMs are
 large products outside any kernel, left to ``torch.matmul`` at IEEE f32
@@ -22,9 +22,10 @@ Source notes (TPU kernel → this port, bound on the H100, design):
 
 ``chol_inv_block`` ← ``abstractgps_tpu/ops/pallas_chol.py:179``
   (``_chol_inv_block``, body :77-175). Latency-bound: a chain of B column
-  steps on a 128² block. One CTA holds the block and its inverse in 128 KB
-  of shared memory; the factor is right-looking column by column, the
-  inverse exact forward substitution (no Newton polish needed).
+  steps on a 128² block. One CTA runs the block routine of
+  ``csrc/block_routines.cuh``: the factor and the inverse (exact blocked
+  forward substitution, no Newton polish needed) in one pass of 8-column
+  group steps.
 ``slab_factor`` ← ``abstractgps_tpu/ops/pallas_chol.py:339``
   (``_slab_factor``, ``_slab_body`` :298). Operation-bound in principle
   (W³/3 flops at W = 1024), but a 4 MB slab does not fit one SM's shared
@@ -35,10 +36,14 @@ Source notes (TPU kernel → this port, bound on the H100, design):
 ``tri_inv_block`` ← ``abstractgps_tpu/ops/pallas_chol.py:405``
   (``_tri_inv_block``, body :368-401). Latency-bound per block; batched
   with one CTA per diagonal block, read in place through strides.
+``chol_block`` ← ``abstractgps_tpu/ops/pallas_chol.py:455``
+  (``_chol_block``, body :425-451). The factor half of the block routine,
+  one CTA. No path of either package calls it.
 
 Layouts: ``slab_factor`` returns the plain-lower slab factor L (the TPU
 kernel returned Lᵀ, a store-layout choice) and the (W/B, B, B) inverses of
-its diagonal blocks; ``chol_inv_block`` returns (L, L⁻¹), plain lower.
+its diagonal blocks; ``chol_inv_block`` returns (L, L⁻¹), plain lower;
+``chol_block`` returns L, plain lower as the TPU kernel did.
 
 Backward passes (``torch.autograd.Function``s, the JAX package's
 ``custom_vjp``/``custom_jvp`` rules written as reverse rules):
@@ -152,30 +157,64 @@ def _invert_lower_plain(L: torch.Tensor) -> torch.Tensor:
     return W
 
 
-def chol_inv_block_plain(A: torch.Tensor):
-    """Plain version of ``chol_inv_block``: (L, L⁻¹) of one SPD block by
-    right-looking column steps; lower triangle read; a negative pivot
-    gives NaN."""
-    M = torch.tril(A).clone()
+def chol_block_plain(A: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``chol_block``: the plain-lower factor of one SPD
+    block by right-looking column steps; lower triangle read, upper
+    triangle of the result zero; a negative pivot gives NaN."""
+    M = torch.tril(A)
     for j in range(A.shape[0]):
         d = torch.sqrt(M[j, j])
         col = M[j + 1:, j] / d
         M[j, j] = d
         M[j + 1:, j] = col
         M[j + 1:, j + 1:] -= col[:, None] * col[None, :]
-    L = torch.tril(M)
+    return torch.tril(M)
+
+
+def chol_inv_block_plain(A: torch.Tensor):
+    """Plain version of ``chol_inv_block``: (L, L⁻¹) of one SPD block, the
+    factor by ``chol_block_plain``, the inverse by forward substitution."""
+    L = chol_block_plain(A)
     return L, _invert_lower_plain(L)
 
 
+def _diag_block(A: torch.Tensor, name: str) -> torch.Tensor:
+    """``A`` as the block kernels take it: a square f32 block of edge
+    B ≤ 128 with B a multiple of 8 (the kernels' column-group width)."""
+    A = _f32_rows(A, name)
+    B = A.shape[0]
+    if A.shape[1] != B or B > 128 or B % 8:
+        raise ValueError(f"{name}: bad block shape {tuple(A.shape)} "
+                         "(square, edge ≤ 128 and a multiple of 8)")
+    return A
+
+
+def chol_block(A: torch.Tensor) -> torch.Tensor:
+    """Plain-lower Cholesky factor of one (B, B) SPD block (B ≤ 128, a
+    multiple of 8 on the card), lower triangle read (rows may be strided),
+    upper triangle zero; a non-PSD block gives NaN. CUDA: one launch of
+    ``csrc/chol_block.cu``."""
+    if not A.is_cuda:
+        return chol_block_plain(A)
+    A = _diag_block(A, "chol_block")
+    B = A.shape[0]
+    L = torch.empty((B, B), dtype=torch.float32, device=A.device)
+    with torch.cuda.device(A.device):
+        err = cuda.library().agp_chol_block(A.data_ptr(), A.stride(0), L.data_ptr(), B,
+                                            cuda.stream(A))
+    cuda.check(err, "chol_block")
+    cuda.LAUNCHES["chol_block"] += 1
+    return L
+
+
 def chol_inv_block(A: torch.Tensor):
-    """(L, L⁻¹) of one (B, B) SPD block, B ≤ 128, lower triangle read (rows
-    may be strided). CUDA: one launch of ``csrc/chol_inv_block.cu``."""
+    """(L, L⁻¹) of one (B, B) SPD block (B ≤ 128, a multiple of 8 on the
+    card), lower triangle read (rows may be strided). CUDA: one launch of
+    ``csrc/chol_inv_block.cu``."""
     if not A.is_cuda:
         return chol_inv_block_plain(A)
-    A = _f32_rows(A, "chol_inv_block")
+    A = _diag_block(A, "chol_inv_block")
     B = A.shape[0]
-    if A.shape[1] != B or B > 128:
-        raise ValueError(f"chol_inv_block: bad block shape {tuple(A.shape)}")
     L = torch.empty((B, B), dtype=torch.float32, device=A.device)
     W = torch.empty((B, B), dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
@@ -213,7 +252,7 @@ def slab_factor(S: torch.Tensor, block: int):
         return slab_factor_plain(S, block)
     S = _f32_rows(S, "slab_factor").contiguous()
     W = S.shape[0]
-    if S.shape[1] != W or W % block or block > 128:
+    if S.shape[1] != W or W % block or block > 128 or block % 8:
         raise ValueError(f"slab_factor: bad slab {tuple(S.shape)} / block {block}")
     L = torch.empty_like(S)
     Winv = S.new_empty((W // block, block, block))

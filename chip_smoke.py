@@ -11,7 +11,9 @@ width (N = 4500: a 512-wide tail slab and a 36-block row-panel trtri).
 Checks values and gradients against f64 ``torch.linalg`` oracles on the
 card, holds each hand-written kernel against its plain torch version at
 the shapes the main path gives it (the backward kernels also bit for bit
-against a second call), times the kernels with CUDA events and the
+against a second call; ``chol_block``, which no path runs, on blocks the
+main path produced, its launches counted in its own phase and its line
+marked ``"path": null``), times the kernels with CUDA events and the
 end-to-end paths on the host clock (each call ends in a device-to-host
 read), and traces one logpdf, one prediction and the gradient of each
 with ``torch.profiler`` for the device time by kernel and the device's
@@ -54,7 +56,12 @@ KERNELS = {
                            "abstractgps_tpu/ops/pallas_gram.py:359"),
     "gram_bwd": ("abstractgps_tpu_torch/csrc/gram_bwd.cu",
                  "abstractgps_tpu/ops/pallas_gram.py:185"),
+    "chol_block": ("abstractgps_tpu_torch/csrc/chol_block.cu",
+                   "abstractgps_tpu/ops/pallas_chol.py:455"),
 }
+# kernels that no path of the port runs: their launches are those of their
+# own phase in ``kernel_checks``
+OFF_PATH = ("chol_block",)
 SIGMA2_BUDGET = 5e-3  # the JAX package's σ²-gradient budget against f64
 
 
@@ -142,7 +149,7 @@ def run_grad_path(theta, x, y, xs=None):
 
 
 def total_launches(counts: dict) -> dict:
-    return {k: sum(c[k] for c in counts.values()) for k in KERNELS}
+    return {k: sum(c[k] for c in counts.values()) for k in KERNELS if k not in OFF_PATH}
 
 
 def oracle_f64(s2, ell, x, y, xs):
@@ -277,6 +284,25 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: the summed durations of the kernels
+    it launched, under ``torch.profiler``, over ``iters`` calls. Unlike
+    ``cuda_ms`` it leaves out the host's cost of issuing the call, which
+    bounds ``cuda_ms`` for a kernel of tens of µs behind a Python wrapper."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / iters / 1e3
+
+
 def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOPS * 1e3
@@ -338,6 +364,14 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
                           library_ms=lib_ms, bound_ms=b, bound_by=by, ok=ok,
                           shape=shape)
 
+    def device_times(name, kernel_fn, lib_fn):
+        # the kernel's and the library call's device time per call: for the
+        # block kernels the host's cost of issuing a call bounds cuda_ms
+        r = recs[name]
+        r["device_ms"], r["library_device_ms"] = device_ms(kernel_fn), device_ms(lib_fn)
+        print(f"[kernel {name}] device time per call {r['device_ms']:.4f} ms, library "
+              f"{r['library_device_ms']:.4f} ms", flush=True)
+
     # gram_tile at the prediction cross-gram (n, m) (σ² is applied outside
     # it). Tolerance: d² rounding ≲ 8·eps·(‖x‖² + ‖z‖²) ≤ 1.2e-5 at D = 8,
     # ℓ ≥ 0.8, and |dg/d(d²)| ≤ 1.5 for Matérn-3/2 → |ΔK| ≤ 2e-5: 3e-5 stated
@@ -368,7 +402,9 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
 
     lib = cuda_ms(lib_slab, 10)
     record("slab_factor", err, _tol_rel(norm2(S) / NOISE) * scale, ms, plain, lib,
-           4.0 * (2 * W * W + W * B), W ** 3 / 3.0 + (W // B) * B ** 3 / 3.0, [W, B])
+           4.0 * (W * (W + 1) / 2 + W * W + W * B),
+           W ** 3 / 3.0 + (W // B) * B ** 3 / 3.0, [W, B])
+    device_times("slab_factor", lambda: blocked_chol.slab_factor(S, B), lib_slab)
 
     # chol_inv_block on the first block of the ragged run's 512-wide tail
     # slab (a Schur complement of K + σ²I: κ ≤ ‖A‖/σ² again)
@@ -380,10 +416,40 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     ms = cuda_ms(lambda: blocked_chol.chol_inv_block(A), 50)
     plain = cuda_ms(lambda: blocked_chol.chol_inv_block_plain(A), 3)
     eyeB = torch.eye(B, device=A.device)
-    lib = cuda_ms(lambda: torch.linalg.solve_triangular(torch.linalg.cholesky(A), eyeB,
-                                                        upper=False), 50)
+
+    def lib_block():
+        return torch.linalg.solve_triangular(torch.linalg.cholesky(A), eyeB, upper=False)
+
+    lib = cuda_ms(lib_block, 50)
     record("chol_inv_block", err, _tol_rel(norm2(A) / NOISE) * scale, ms, plain, lib,
-           4.0 * 3 * B * B, 2.0 * B ** 3 / 3.0, [B, B])
+           4.0 * (B * (B + 1) / 2 + 2 * B * B), 2.0 * B ** 3 / 3.0, [B, B])
+    device_times("chol_inv_block", lambda: blocked_chol.chol_inv_block(A), lib_block)
+
+    # chol_block (on no path) on two blocks the main path produced: the
+    # first block of the full-width slab and the ragged run's block above;
+    # its launches are this phase's own
+    from abstractgps_tpu_torch.ops import cuda
+
+    before = cuda.LAUNCHES["chol_block"]
+    checks = []  # (error, tolerance) per block; a nonzero upper triangle fails
+    for A in (slab_in[:B, :B], block_in):
+        got = blocked_chol.chol_block(A)
+        want = blocked_chol.chol_block_plain(A)
+        upper_zero = bool(torch.all(torch.triu(got, 1) == 0))
+        checks.append((float((got - want).abs().max()) if upper_zero else math.inf,
+                       _tol_rel(norm2(A) / NOISE) * float(want.abs().max())))
+    err, tol = max(checks, key=lambda c: c[0] / c[1])
+    A = block_in
+    ms = cuda_ms(lambda: blocked_chol.chol_block(A), 50)
+    plain = cuda_ms(lambda: blocked_chol.chol_block_plain(A), 3)
+    lib = cuda_ms(lambda: torch.linalg.cholesky(A), 50)
+    record("chol_block", err, tol, ms, plain, lib, 4.0 * (B * (B + 1) / 2 + B * B),
+           B ** 3 / 3.0, [B, B])
+    device_times("chol_block", lambda: blocked_chol.chol_block(A),
+                 lambda: torch.linalg.cholesky(A))
+    recs["chol_block"]["launches"] = cuda.LAUNCHES["chol_block"] - before
+    if recs["chol_block"]["launches"] == 0:
+        recs["chol_block"]["ok"] = False
 
     # tri_inv_block over the diagonal blocks of the full-width factor, as the
     # prediction solve's doubling trtri calls it; κ(L_ii) ≤ sqrt(‖K‖/σ²)
@@ -400,7 +466,7 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     eyes = torch.eye(B, device=L.device).expand(blocks.shape)
     lib = cuda_ms(lambda: torch.linalg.solve_triangular(blocks, eyes, upper=False), 20)
     record("tri_inv_block", err, _tol_rel(kappa_l) * scale, ms, plain, lib,
-           4.0 * 2 * nb * B * B, nb * B ** 3 / 3.0, [nb, B, B])
+           4.0 * nb * (B * (B + 1) / 2 + B * B), nb * B ** 3 / 3.0, [nb, B, B])
     return recs
 
 
@@ -751,11 +817,15 @@ def main(argv=None) -> int:
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = recs[name]
+        off_path = name in OFF_PATH
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": r["launches"] if off_path else launches[name],
+            "path": None if off_path else "main",
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "device_ms": r.get("device_ms"),
+            "library_device_ms": r.get("library_device_ms"),
         })
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -55,6 +55,16 @@ def _close(got, want, rel=1e-4):
     assert err <= rel * scale, (err, scale)
 
 
+def _matern_gram(gen, n, ell, device):
+    """K + 0.1·I for a Matérn-3/2 gram of n points in [0, 1]^8, as the main
+    path builds it (f32 on the card), and its condition number κ (f64)."""
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float64)
+    t = math.sqrt(3.0) * torch.cdist(x, x) / ell
+    K = (1.0 + t) * torch.exp(-t) + 0.1 * torch.eye(n, dtype=torch.float64)
+    ev = torch.linalg.eigvalsh(K)
+    return K.to(device=device, dtype=torch.float32), float(ev[-1] / ev[0])
+
+
 def _launched(name, fn):
     before = cuda_ops.LAUNCHES[name]
     out = fn()
@@ -91,6 +101,27 @@ def test_chol_inv_block_matches_plain(cuda, gen, B):
     assert torch.all(torch.triu(L, 1) == 0) and torch.all(torch.triu(W, 1) == 0)
     bad = A - 10.0 * torch.eye(B, device=cuda)
     assert torch.isnan(blocked_chol.chol_inv_block(bad)[0]).any()
+    # a main-path block, where the kernel's summation order matters more:
+    # K + 0.1·I of a Matérn-3/2 gram (κ ≈ 1e3 at B = 128), at 10·κ·eps
+    K, kappa = _matern_gram(gen, B, 3.0, cuda)
+    L, W = _launched("chol_inv_block", lambda: blocked_chol.chol_inv_block(K))
+    Lp, Wp = blocked_chol.chol_inv_block_plain(K)
+    _close(L, Lp, rel=10.0 * kappa * EPS32)
+    _close(W, Wp, rel=10.0 * kappa * EPS32)
+
+
+def test_chol_block_matches_plain(cuda, gen):
+    for B in (128, 48):
+        A = _spd(gen, B, cuda)
+        dirty = torch.tril(A) + torch.triu(torch.full_like(A, 1e3), 1)  # upper never read
+        L = _launched("chol_block", lambda: blocked_chol.chol_block(dirty))
+        _close(L, blocked_chol.chol_block_plain(A))
+        assert torch.all(torch.triu(L, 1) == 0)
+        # the factor half of chol_inv_block: the same routine, the same bits
+        torch.testing.assert_close(L, blocked_chol.chol_inv_block(dirty)[0], rtol=0, atol=0)
+        bad = A - 10.0 * torch.eye(B, device=cuda)
+        L_bad = _launched("chol_block", lambda: blocked_chol.chol_block(bad))
+        assert torch.isnan(L_bad).any() and torch.all(torch.triu(L_bad, 1) == 0)
 
 
 def test_slab_factor_matches_plain_and_f64(cuda, gen):
@@ -103,6 +134,14 @@ def test_slab_factor_matches_plain_and_f64(cuda, gen):
     L64 = torch.linalg.cholesky(S.double())
     _close(L.double(), L64)
     assert torch.all(torch.triu(L, 1) == 0)
+    # a main-path slab: K + 0.1·I of a Matérn-3/2 gram, κ ≈ 7.5e3, at 10·κ·eps
+    K, kappa = _matern_gram(gen, W_, 2.0, cuda)
+    L, Winv = _launched("slab_factor", lambda: blocked_chol.slab_factor(K, B))
+    Lp, Wp = blocked_chol.slab_factor_plain(K, B)
+    tol = 10.0 * kappa * EPS32
+    _close(L, Lp, rel=tol)
+    _close(Winv, Wp, rel=tol)
+    _close(L.double(), torch.linalg.cholesky(K.double()), rel=tol)
 
 
 def test_tri_inv_block_batched_and_strided(cuda, gen):
@@ -130,6 +169,16 @@ def test_cuda_tensors_never_take_the_plain_version(cuda):
         fused_gram.gram_tile(A, A, 0)
     with pytest.raises(ValueError):
         blocked_chol.slab_factor(torch.eye(1000, device=cuda), 128)
+
+
+def test_block_kernels_take_edges_that_are_multiples_of_8(cuda):
+    # the block routine factors 8-column groups (the TPU kernel's assert)
+    A = torch.eye(50, device=cuda)
+    for fn in (blocked_chol.chol_block, blocked_chol.chol_inv_block):
+        with pytest.raises(ValueError):
+            fn(A)
+    with pytest.raises(ValueError):
+        blocked_chol.slab_factor(torch.eye(120, device=cuda), 60)
 
 
 def test_slice_on_the_card_matches_f64(cuda, gen):

@@ -83,6 +83,24 @@ def test_chol_inv_block_matches_pallas(rng, B):
     assert torch.isnan(blocked_chol.chol_inv_block(_t(bad))[0]).any()
 
 
+@pytest.mark.parametrize("B", [32, 64])
+def test_chol_block_matches_pallas(rng, B):
+    A = spd(rng, B).astype(np.float32)
+    # garbage in the upper triangle must not enter either version
+    dirty = np.tril(A) + np.triu(rng.normal(size=(B, B)) * 1e3, 1).astype(np.float32)
+    want = pallas_chol._chol_block(jnp.asarray(dirty, jnp.float32), interpret=True)
+    got = blocked_chol.chol_block(_t(dirty))
+    assert got.dtype == torch.float32 and got.shape == (B, B)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert np.all(np.triu(got.numpy(), 1) == 0)
+    # chol_inv_block's factor half is the same column-step code
+    assert torch.equal(blocked_chol.chol_inv_block_plain(_t(dirty))[0], got)
+    bad = A - 10.0 * np.eye(B, dtype=np.float32)
+    assert np.isnan(np.asarray(pallas_chol._chol_block(jnp.asarray(bad), interpret=True))).any()
+    L_bad = blocked_chol.chol_block(_t(bad))
+    assert torch.isnan(L_bad).any() and np.all(np.triu(L_bad.numpy(), 1) == 0)
+
+
 def test_slab_factor_matches_pallas_and_f64(rng):
     W_, B = 64, 16
     S = spd(rng, W_)
