@@ -10,9 +10,11 @@ The input is a nested dict of class names and numpy leaves, e.g.::
 Field names are those of the kernel classes' constructors (which match the
 JAX package's dataclass fields); a sum or product carries its parts as a
 list under ``"kernels"``. Array leaves become tensors of the given dtype on
-the given device; integers (``PolynomialKernel.degree``) stay integers.
-``FunctionTransform`` and ``CustomMean`` carry code, not weights, and are
-refused.
+the given device, by default the package's default device (``"cuda"``
+unless ``set_default_device`` says otherwise; with no card present that
+raises, as ``as_tensor`` does); integers (``PolynomialKernel.degree``)
+stay integers. ``FunctionTransform`` and ``CustomMean`` carry code, not
+weights, and are refused.
 
 A tagged parameter tree (``params``) is carried across by
 ``params_from_numpy``: nested dicts, lists and tuples whose leaves are
@@ -29,6 +31,7 @@ from . import kernels as _kernels
 from . import params as _params
 from .kernels import base as _base
 from .means import ConstMean, ZeroMean
+from .ops.distance import resolve_device
 from .ops.noise import DenseNoise, DiagonalNoise, IsotropicNoise
 
 __all__ = ["kernel_from_numpy", "mean_from_numpy", "noise_from_numpy", "params_from_numpy"]
@@ -66,25 +69,25 @@ def _build(tree, dtype, device):
     return cls(**kwargs)
 
 
-def kernel_from_numpy(tree: dict, device="cpu", dtype=torch.float64) -> _base.Kernel:
+def kernel_from_numpy(tree: dict, device=None, dtype=torch.float64) -> _base.Kernel:
     """The port's kernel module tree for a nested-dict description."""
-    return _build(tree, dtype, torch.device(device))
+    return _build(tree, dtype, resolve_device(device))
 
 
-def mean_from_numpy(tree: dict, device="cpu", dtype=torch.float64):
+def mean_from_numpy(tree: dict, device=None, dtype=torch.float64):
     """``{"type": "ZeroMean"}`` or ``{"type": "ConstMean", "c": array}``."""
     if tree["type"] == "ZeroMean":
         return ZeroMean()
     if tree["type"] == "ConstMean":
-        return ConstMean(_leaf(tree["c"], dtype, torch.device(device)))
+        return ConstMean(_leaf(tree["c"], dtype, resolve_device(device)))
     raise ValueError(f"cannot carry across {tree['type']!r}")
 
 
-def noise_from_numpy(tree: dict, device="cpu", dtype=torch.float64):
+def noise_from_numpy(tree: dict, device=None, dtype=torch.float64):
     """``{"type": "IsotropicNoise", "variance": a, "n": n}``,
     ``{"type": "DiagonalNoise", "variances": v}`` or
     ``{"type": "DenseNoise", "cov": C}``."""
-    device = torch.device(device)
+    device = resolve_device(device)
     kind = tree["type"]
     if kind == "IsotropicNoise":
         return IsotropicNoise(_leaf(tree["variance"], dtype, device), int(tree["n"]))
@@ -95,11 +98,11 @@ def noise_from_numpy(tree: dict, device="cpu", dtype=torch.float64):
     raise ValueError(f"cannot carry across {kind!r}")
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float64):
+def params_from_numpy(tree, device=None, dtype=torch.float64):
     """The port's tagged parameter tree for a nested description (see the
     module docstring); raw tensors and plain arrays become leaves that
     require grad."""
-    device = torch.device(device)
+    device = resolve_device(device)
     if isinstance(tree, dict) and tree.get("type") in ("Positive", "Bounded", "Fixed"):
         kind = tree["type"]
         if kind == "Fixed":

@@ -1,12 +1,8 @@
-// Routines for one diagonal block of edge B <= 128, used by chol_inv_block, slab_factor,
-// chol_block and tri_inv_block. One CTA works on one block.
+// The routine for one diagonal block of edge B <= 128 (a multiple of 8), one CTA a block,
+// behind chol_inv_block, slab_factor, chol_block and tri_inv_block.
 //
-// tri_inv_block holds its block row-major in dynamic shared memory (B*B floats per
-// matrix, 64 KB at B = 128) and inverts it column step by column step
-// (invert_lower_smem).
-//
-// The factor (+ inverse) of an SPD block, factor_block_kernel, is designed for one SM of
-// the H100. The serial chain of a 128-block (~1.4 MFLOP) bounds it, not bytes or
+// factor_block_kernel<kInverse, kGiven> is designed for one SM of the H100. The serial chain
+// of a 128-block (~1.4 MFLOP for the factor and its inverse) bounds it, not bytes or
 // operations, so the design shortens that chain:
 //   * Register tiles. The block is cut into 8 x 8 tiles; each tile of the lower triangle
 //     (136 at B = 128) belongs to two threads (4 rows each) and stays in their registers
@@ -22,8 +18,16 @@
 //     live tile follows: M -= L[., g] L[., g]^T below the group, X -= L[., g] W[g, .].
 //     Two barriers a group (32 at B = 128, where the column loop had ~640), no division
 //     or modulo in any loop.
+//   * kGiven (tri_inv_block): L is given and only inverted. Every tile starts as X, step g
+//     reads L_gg from the staged column group and takes its 8 pivot reciprocals (IEEE, as
+//     the TPU kernel started from the exact inverse diagonal) instead of factoring, and the
+//     column group L[:, g] is read from global memory instead of solved: threads 128-255
+//     load group g + 1 into registers during step g and stage it after the update, so the
+//     load overlaps the step. No M tiles, no factor, no write-out; a batch of blocks runs
+//     one CTA per block (blockIdx.x, block stride a_stride).
 //   * Shared memory holds only the group's panel, its L columns, and X's and W's rows
-//     (29 KB, padded so the tile reads and stores fall on distinct banks).
+//     (29 KB, padded so the tile reads and stores fall on distinct banks; 25 KB with
+//     kGiven, which has no panel).
 //   * IEEE FP32 FMAs throughout. Tensor cores buy nothing on a latency-bound 128-block,
 //     and TF32 would corrupt the pivots (ops/precision.py).
 // Contract: the lower triangle of A is read, nothing above it; L is plain lower with its
@@ -36,30 +40,6 @@
 namespace agp {
 
 constexpr int kMaxBlock = 128;
-constexpr int kBlockThreads = 512;
-
-__host__ __device__ constexpr int block_smem_bytes(int B) { return 2 * B * B * (int)sizeof(float); }
-
-// W = L^-1 for the lower-triangular L (lower triangle read), by right-looking forward
-// substitution on the rows of W: row j is divided by L[j][j], then L[i][j] * row j is
-// subtracted from every later row i. W's strict upper triangle is exactly zero.
-__device__ inline void invert_lower_smem(const float* L, float* W, int B) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int e = tid; e < B * B; e += nt) W[e] = (e / B == e % B) ? 1.f : 0.f;
-  for (int j = 0; j < B; ++j) {
-    __syncthreads();
-    const float d = L[j * B + j];
-    for (int c = tid; c <= j; c += nt) W[j * B + c] /= d;
-    __syncthreads();
-    const int r = B - j - 1, w = j + 1;
-    for (int e = tid; e < r * w; e += nt) {
-      const int i = j + 1 + e / w, c = e % w;
-      W[i * B + c] = fmaf(-L[i * B + j], W[j * B + c], W[i * B + c]);
-    }
-  }
-  __syncthreads();
-}
-
 constexpr int kGroup = 8;      // columns of one group step = edge of a tile
 constexpr int kTileRows = 4;   // rows of a tile held by one thread: two threads a tile
 constexpr int kSplit = kGroup / kTileRows;
@@ -122,23 +102,52 @@ __device__ __forceinline__ void write_l_group(float* L, long ldl, const float* l
   }
 }
 
+// The given L's column group j0, rows j0.. (lower triangle only, 0 above it), into v by the
+// threads w = 0..127 in the layout of write_l_group, and from v into lc ([t][row]).
+__device__ __forceinline__ void load_l_group(const float* A, long lda, int j0, int B, int w,
+                                             float (&v)[kGroup]) {
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const int e = w + i * kMaxBlock, r = e >> 3, t = e & (kGroup - 1);
+    v[i] = (r >= j0 + t && r < B) ? A[(long)r * lda + j0 + t] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void stage_l_group(float* lc, int j0, int B, int w,
+                                              const float (&v)[kGroup]) {
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) {
+    const int e = w + i * kMaxBlock, r = e >> 3, t = e & (kGroup - 1);
+    if (r >= j0 && r < B) lc[t * kRowStride + tr(r)] = v[i];
+  }
+}
+
 // The factor (kInverse: and the inverse) of one SPD block read from A (row stride lda,
 // lower triangle only). Writes the plain-lower factor to L (row stride ldl, upper triangle
 // zeroed), zeroes the zero_cols columns of L to the right of the block (the slab's upper
 // triangle; L 16-byte aligned, ldl and zero_cols multiples of 4, when zero_cols > 0), and
-// with kInverse writes L^-1 to Winv (B x B, contiguous). One CTA of
-// kGroupThreads threads, static shared memory only.
+// with kInverse writes L^-1 to Winv (B x B, contiguous).
+// kGiven: A holds lower-triangular blocks, block blockIdx.x at A + blockIdx.x * a_stride;
+// writes the inverse of each to Winv + blockIdx.x * B * B (L, ldl, zero_cols unused).
+// One CTA of kGroupThreads threads a block, static shared memory only.
 // (static: each translation unit that launches it keeps its own copy.)
-template <bool kInverse>
+template <bool kInverse, bool kGiven = false>
 static __global__ void __launch_bounds__(kGroupThreads)
     factor_block_kernel(const float* __restrict__ A, long lda, float* __restrict__ L, long ldl,
-                        float* __restrict__ Winv, int B, int zero_cols) {
-  __shared__ __align__(16) float panel[kMaxBlock / kGroup * kPanelTile];  // M[:, g]
+                        float* __restrict__ Winv, int B, int zero_cols, long a_stride) {
+  static_assert(kInverse || !kGiven, "a given factor is only inverted");
+  // M[:, g]
+  __shared__ __align__(16) float panel[kGiven ? 4 : kMaxBlock / kGroup * kPanelTile];
   __shared__ __align__(16) float lcol[2][kGroup * kRowStride];  // L[:, g], [t][row], by g & 1
   __shared__ __align__(16) float xrow[kInverse ? kGroup * kRowStride : 4];  // X[g, :], [t][col]
   __shared__ __align__(16) float wrow[kInverse ? kGroup * kRowStride : 4];  // W[g, :], [t][col]
   const int tid = threadIdx.x;
   const int groups = B / kGroup;
+  const bool loader = tid >= kMaxBlock && tid < 2 * kMaxBlock;  // the L write-out (or load)
+  if (kGiven) {
+    A += blockIdx.x * a_stride;
+    Winv += (long)blockIdx.x * B * B;
+  }
 
   // this thread's rows row0.. of tile (ti, tj) of the lower triangle, the tiles in
   // reversed row-major order (the top rows, idle first, go to the last warps)
@@ -151,7 +160,14 @@ static __global__ void __launch_bounds__(kGroupThreads)
   }
   const bool has_tile = tid < tiles * kSplit;
   Tile tile;
-  if (has_tile) {
+  float next[kGroup];  // kGiven: the next column group of L, loaded a step ahead
+  if (kGiven) {
+    if (has_tile) set_identity_or_zero(tile, ti == tj, row0);
+    if (loader) {
+      load_l_group(A, lda, 0, B, tid - kMaxBlock, next);
+      stage_l_group(lcol[0], 0, B, tid - kMaxBlock, next);
+    }
+  } else if (has_tile) {
     const float* src = A + (long)(ti * kGroup + row0) * lda + tj * kGroup;
 #pragma unroll
     for (int a = 0; a < kTileRows; ++a)
@@ -170,28 +186,38 @@ static __global__ void __launch_bounds__(kGroupThreads)
     float* lc = lcol[g & 1];
     const int k = tid;
     if (k < B) {
-      // the diagonal block's factor, by every thread (broadcast reads)
+      // the diagonal block's factor (kGiven: the given block), by every thread (broadcast
+      // reads), and the reciprocals of its pivots
       float d[kGroup][kGroup], rinv[kGroup];
+      if (kGiven) {
 #pragma unroll
-      for (int i = 0; i < kGroup; ++i)
+        for (int i = 0; i < kGroup; ++i)
 #pragma unroll
-        for (int j = 0; j <= i; ++j) d[i][j] = panel[g * kPanelTile + i * kGroup + j];
+          for (int j = 0; j <= i; ++j) d[i][j] = lc[j * kRowStride + tr(j0 + i)];
 #pragma unroll
-      for (int t = 0; t < kGroup; ++t) {
-        // rsqrt of the pivot, as the TPU kernel took it (one MUFU op on the serial chain,
-        // where an IEEE sqrt and division cost ~100 cycles a column)
-        rinv[t] = rsqrtf(d[t][t]);
-        d[t][t] *= rinv[t];
+        for (int t = 0; t < kGroup; ++t) rinv[t] = __frcp_rn(d[t][t]);
+      } else {
 #pragma unroll
-        for (int i = t + 1; i < kGroup; ++i) d[i][t] *= rinv[t];
+        for (int i = 0; i < kGroup; ++i)
 #pragma unroll
-        for (int i = t + 1; i < kGroup; ++i)
+          for (int j = 0; j <= i; ++j) d[i][j] = panel[g * kPanelTile + i * kGroup + j];
 #pragma unroll
-          for (int j = t + 1; j <= i; ++j) d[i][j] = fmaf(-d[i][t], d[j][t], d[i][j]);
+        for (int t = 0; t < kGroup; ++t) {
+          // rsqrt of the pivot, as the TPU kernel took it (one MUFU op on the serial chain,
+          // where an IEEE sqrt and division cost ~100 cycles a column)
+          rinv[t] = rsqrtf(d[t][t]);
+          d[t][t] *= rinv[t];
+#pragma unroll
+          for (int i = t + 1; i < kGroup; ++i) d[i][t] *= rinv[t];
+#pragma unroll
+          for (int i = t + 1; i < kGroup; ++i)
+#pragma unroll
+            for (int j = t + 1; j <= i; ++j) d[i][j] = fmaf(-d[i][t], d[j][t], d[i][j]);
+        }
       }
       // row k of L's column group: L[k, g] = M[k, g] L_gg^-T, zero above the diagonal
       // (staged in lc, written to L in the next group step)
-      if (k >= j0) {
+      if (!kGiven && k >= j0) {
         float p[kGroup], l[kGroup];
         load_n(panel + panel_row(k), p);
         const int kk = k - j0;  // < kGroup inside the diagonal block
@@ -221,15 +247,19 @@ static __global__ void __launch_bounds__(kGroupThreads)
           Winv[(long)(j0 + t) * B + k] = w[t];
         }
       }
-    } else if (tid >= kMaxBlock && tid < 2 * kMaxBlock && g > 0) {
+    } else if (loader) {
       // meanwhile the other half of the CTA writes out the previous group's L columns
-      write_l_group(L, ldl, lcol[(g - 1) & 1], j0 - kGroup, B, tid - kMaxBlock);
+      // (kGiven: loads the next group's)
+      if (kGiven && g + 1 < groups)
+        load_l_group(A, lda, j0 + kGroup, B, tid - kMaxBlock, next);
+      if (!kGiven && g > 0)
+        write_l_group(L, ldl, lcol[(g - 1) & 1], j0 - kGroup, B, tid - kMaxBlock);
     }
     __syncthreads();
 
     // the rank-8 update of every live tile: M tiles right of the group (tj > g), X tiles
     // left of it (tj <= g), all below it (ti > g)
-    if (has_tile && ti > g && (kInverse || tj > g)) {
+    if (has_tile && ti > g && (kGiven ? tj <= g : (kInverse || tj > g))) {
       const float* as = lc + tr(ti * kGroup) + row0;
       const float* bs = ((!kInverse || tj > g) ? lc : wrow) + tr(tj * kGroup);
 #pragma unroll
@@ -242,7 +272,7 @@ static __global__ void __launch_bounds__(kGroupThreads)
 #pragma unroll
           for (int b = 0; b < kGroup; ++b) tile[a][b] = fmaf(-av[a], bv[b], tile[a][b]);
       }
-      if (tj == g + 1) {
+      if (!kGiven && tj == g + 1) {
         // M's next column group is final: hand it to the panel, start this tile's X
         store_tile_rows(panel + ti * kPanelTile + row0 * kGroup, kGroup, tile);
         if (kInverse) set_identity_or_zero(tile, ti == tj, row0);
@@ -251,10 +281,13 @@ static __global__ void __launch_bounds__(kGroupThreads)
         store_tile_rows(xrow + row0 * kRowStride + tr(tj * kGroup), kRowStride, tile);
       }
     }
+    // kGiven: the next column group into the other lc buffer (last read in step g - 1)
+    if (kGiven && loader && g + 1 < groups)
+      stage_l_group(lcol[(g + 1) & 1], j0 + kGroup, B, tid - kMaxBlock, next);
     __syncthreads();
   }
-  if (tid >= kMaxBlock && tid < 2 * kMaxBlock)
-    write_l_group(L, ldl, lcol[(groups - 1) & 1], B - kGroup, B, tid - kMaxBlock);
+  if (kGiven) return;
+  if (loader) write_l_group(L, ldl, lcol[(groups - 1) & 1], B - kGroup, B, tid - kMaxBlock);
   // the slab's zeros last (global stores issued before a barrier delay it), 16 bytes a store
   const int w4 = zero_cols >> 2;
   for (int e = tid; e < B * w4; e += kGroupThreads) {

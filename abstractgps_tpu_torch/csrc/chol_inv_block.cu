@@ -13,6 +13,6 @@
 extern "C" int agp_chol_inv_block(const float* A, long lda, float* L, float* W, int B,
                                   cudaStream_t stream) {
   if (B <= 0 || B > agp::kMaxBlock || B % agp::kGroup) return (int)cudaErrorInvalidValue;
-  agp::factor_block_kernel<true><<<1, agp::kGroupThreads, 0, stream>>>(A, lda, L, B, W, B, 0);
+  agp::factor_block_kernel<true><<<1, agp::kGroupThreads, 0, stream>>>(A, lda, L, B, W, B, 0, 0);
   return (int)cudaGetLastError();
 }

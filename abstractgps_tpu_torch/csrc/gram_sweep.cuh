@@ -1,7 +1,8 @@
-// Isotropic gram maps, their VJPs, and the row-block backward sweep shared by gram_bwd.cu and
-// logpdf_contraction.cu (the map alone is also gram_tile.cu's epilogue).
+// Isotropic gram maps, their VJPs (also used by gram_bwd.cu's column-split sweep), and the
+// row-block backward sweep of logpdf_contraction.cu (the map alone is also gram_tile.cu's
+// epilogue).
 //
-// The sweep: one CTA owns a block of kSweepTile rows of the row operand x and walks over every
+// The row-block sweep: one CTA owns a block of kSweepTile rows of the row operand x and walks over every
 // column tile of z in order. Per tile it rebuilds d^2 = max(|x_i|^2 + |z_j|^2 - 2 x_i.z_j, 0)
 // with FP32 FMA (as gram_tile does), has a loader put the cotangent tile C in shared memory,
 // applies the map's VJP in the epilogue, and accumulates

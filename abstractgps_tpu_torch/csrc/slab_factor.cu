@@ -99,7 +99,7 @@ extern "C" int agp_slab_factor(const float* S, float* L, float* Winv, float* wor
     const int rest = W - (int)r0 - B;
     float* Wk = Winv + r0 * B;
     agp::factor_block_kernel<true><<<1, agp::kGroupThreads, 0, stream>>>(
-        work + r0 * ld + r0, ld, L + r0 * ld + r0, ld, Wk, B, rest);
+        work + r0 * ld + r0, ld, L + r0 * ld + r0, ld, Wk, B, rest, 0);
     err = cudaGetLastError();
     if (err != cudaSuccess || rest == 0) return (int)err;
     float* L21 = L + (r0 + B) * ld + r0;

@@ -35,7 +35,9 @@ Source notes (TPU kernel → this port, bound on the H100, design):
   update S22 −= L21·L21ᵀ as hand-written tiled FP32 kernels.
 ``tri_inv_block`` ← ``abstractgps_tpu/ops/pallas_chol.py:405``
   (``_tri_inv_block``, body :368-401). Latency-bound per block; batched
-  with one CTA per diagonal block, read in place through strides.
+  with one CTA per diagonal block, read in place through strides. Each
+  CTA runs the block routine above with L given: the inverse's group
+  steps alone, the next column group of L loaded while a step runs.
 ``chol_block`` ← ``abstractgps_tpu/ops/pallas_chol.py:455``
   (``_chol_block``, body :425-451). The factor half of the block routine,
   one CTA. No path of either package calls it.
@@ -276,13 +278,14 @@ def tri_inv_block_plain(L: torch.Tensor, block: int) -> torch.Tensor:
 
 def tri_inv_block(L: torch.Tensor, block: int) -> torch.Tensor:
     """(nb, B, B) inverses of the nb = n/B lower-triangular diagonal blocks
-    of the (n, n) matrix L (lower triangles read; rows may be strided).
-    CUDA: one batched launch of ``csrc/tri_inv_block.cu``."""
+    of the (n, n) matrix L (lower triangles read; rows may be strided; B a
+    multiple of 8 on the card). CUDA: one batched launch of
+    ``csrc/tri_inv_block.cu``."""
     if not L.is_cuda:
         return tri_inv_block_plain(L, block)
     L = _f32_rows(L, "tri_inv_block")
     n = L.shape[0]
-    if L.shape[1] != n or n % block or block > 128:
+    if L.shape[1] != n or n % block or block > 128 or block % 8:
         raise ValueError(f"tri_inv_block: bad matrix {tuple(L.shape)} / block {block}")
     nb = n // block
     ld = L.stride(0)

@@ -43,8 +43,9 @@ _SIGNATURES = {
     "agp_slab_factor": (_P, _P, _P, _P, _I, _I, _P),
     # L, ld, block_stride, nb, B, out, stream
     "agp_tri_inv_block": (_P, _L, _L, _I, _I, _P, _P),
-    # x, z, C, ldc, params, xbar, partial, sums, n, m, d, family, symmetric, mode, stream
-    "agp_gram_bwd": (_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, z, C, ldc, params, xbar, znorm, part_x, part_p, pbar, n, m, d, family, symmetric,
+    # mode, splits, stream
+    "agp_gram_bwd": (_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, ag, a, T, ldt, scal, xbar, partial, sums, n, d, q, family, stream
     "agp_logpdf_contraction": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # A, lda, L, B, stream

@@ -41,11 +41,10 @@ def get_default_device() -> torch.device:
     return _DEFAULT_DEVICE
 
 
-def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
-    """A tensor as it is (cast to ``dtype``/``device`` only when given), or
-    a non-tensor converted onto the default device."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dtype=dtype or x.dtype, device=device or x.device)
+def resolve_device(device=None) -> torch.device:
+    """The device that non-tensor data goes to: ``device``, or the default
+    device when it is None. Raises when that is ``"cuda"`` and no card is
+    present."""
     device = torch.device(device) if device is not None else _DEFAULT_DEVICE
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -53,6 +52,15 @@ def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
             "no CUDA device is available; call set_default_device('cpu') or "
             "pass tensors"
         )
+    return device
+
+
+def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
+    """A tensor as it is (cast to ``dtype``/``device`` only when given), or
+    a non-tensor converted onto the default device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype or x.dtype, device=device or x.device)
+    device = resolve_device(device)
     arr = np.asarray(x)
     if dtype is None and arr.dtype.kind in "iub":
         arr = arr.astype(np.float64)

@@ -24,18 +24,23 @@ the hand-written kernel ``csrc/gram_tile.cu``; on a CPU tensor it runs
   ``pallas_call`` at :289; driven by ``_fused_vjp_bwd`` :325), the VJP of
   the fused gram: x̄ of the row operand and the map hyperparameter's bar.
   Bound by bytes: it reads the cotangent once per pass (C + Cᵀ for a
-  symmetric gram). Design: one CTA per 64-row block sweeps the column
-  tiles, rebuilds d² with FP32 FMA, applies the map's VJP in the epilogue
-  and accumulates w·(x_i − z_j) in shared memory into rows it owns: no
-  atomics; the scalar sums are FP64 per thread, reduced in a fixed order.
+  symmetric gram). Design: a grid of 64-row blocks × ``column_split_count``
+  column ranges, so the card fills at any (n, m); each CTA streams its
+  cotangent tiles through a ``cp.async`` double buffer, rebuilds d² with
+  FP32 FMA, applies the map's VJP and accumulates rowsum(w) and w·z in
+  registers (one row a thread, up to 32 features; wider inputs add a grid
+  dimension of 32-feature chunks; z's row norms from a small first
+  launch). No atomics: per-split partials of x̄ and FP64 per-CTA bars are
+  added in a fixed order by a small last launch.
 
 ``logpdf_contraction`` — source note (``csrc/logpdf_contraction.cu``):
   replaces ``abstractgps_tpu/ops/pallas_gram.py:359`` (``logpdf_contraction``,
   ``pallas_call`` at :458), the logpdf backward's contraction with the
   cotangent C = ½(α·ḡ·αᵀ − ḡΣ·sym(T)) built per tile from T = tril(K⁻¹).
   Bound by bytes: it reads T's lower triangle twice (n²·4 bytes), C is
-  never stored. Same sweep as ``gram_bwd``; the nearly cancelling σ² sum
-  accumulates in FP64 (the TPU kernel's Neumaier sums).
+  never stored. One CTA per 64-row block sweeps the column tiles
+  (``csrc/gram_sweep.cuh``); the nearly cancelling σ² sum accumulates in
+  FP64 (the TPU kernel's Neumaier sums).
 
 Both return the same bits for the same inputs (no float atomics).
 """
@@ -58,6 +63,7 @@ __all__ = [
     "gram_tile_plain",
     "gram_bwd",
     "gram_bwd_plain",
+    "column_split_count",
     "logpdf_contraction",
     "logpdf_contraction_plain",
     "fused_isotropic_gram",
@@ -233,6 +239,19 @@ def plain_isotropic_gram(kernel, x: torch.Tensor, z: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _MODES = {"plain": 0, "transpose": 1, "sym": 2}
+_TILE = 64  # rows of a row block, columns of a column tile (csrc/gram_bwd.cu)
+# gram_bwd's grid aims at this many CTAs per SM of one H100 (132 SMs); a
+# constant, so that the split, and with it the bits, follow from (n, m)
+_SPLIT_CTAS = 8 * 132
+
+
+def column_split_count(n: int, m: int) -> int:
+    """S, the column splits of ``gram_bwd``'s grid: the least count that
+    gives ``_SPLIT_CTAS`` CTAs with the ⌈n/64⌉ row blocks, at most the
+    T = ⌈m/64⌉ column tiles. A function of (n, m) alone; the kernel gives
+    split s the tiles ``[s·T // S, (s+1)·T // S)``."""
+    tiles = -(-m // _TILE)
+    return min(tiles, -(-_SPLIT_CTAS // -(-n // _TILE)))
 
 
 def gram_bwd_plain(x, z, C, family: int, params, symmetric: bool = False,
@@ -269,7 +288,8 @@ def gram_bwd(x: torch.Tensor, z: torch.Tensor, C: torch.Tensor, family: int,
     ``"transpose"`` (C is (m, n), read transposed: z's cotangent of a cross
     gram with the operands swapped), ``"sym"`` (z is x: one sweep over
     C + Cᵀ gives the total x̄, and p̄ is halved). CUDA: one call of
-    ``csrc/gram_bwd.cu`` (the sweep and the in-order sum of its partials)."""
+    ``csrc/gram_bwd.cu`` (the split sweep and the in-order sum of its
+    partials)."""
     if not x.is_cuda:
         buf = _params_buffer(params, x.device, x.dtype)
         return gram_bwd_plain(x, z, C, family, buf, symmetric, mode)
@@ -287,18 +307,21 @@ def gram_bwd(x: torch.Tensor, z: torch.Tensor, C: torch.Tensor, family: int,
     if C.stride(1) != 1:
         C = C.contiguous()
     buf = _params_buffer(params, x.device)
+    splits = column_split_count(n, m)
     xbar = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    nblocks = -(-n // 64)
-    partial = torch.empty(2 * nblocks, dtype=torch.float64, device=x.device)
-    sums = torch.empty(2, dtype=torch.float64, device=x.device)
+    znorm = torch.empty(m, dtype=torch.float32, device=x.device)
+    part_x = torch.empty((splits, n, d), dtype=torch.float32, device=x.device)
+    part_p = torch.empty(-(-n // _TILE) * splits, dtype=torch.float64, device=x.device)
+    pbar = torch.empty(1, dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         err = cuda.library().agp_gram_bwd(
             x.data_ptr(), z.data_ptr(), C.data_ptr(), C.stride(0), buf.data_ptr(),
-            xbar.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, m, d, family,
-            int(symmetric), _MODES[mode], cuda.stream(x))
+            xbar.data_ptr(), znorm.data_ptr(), part_x.data_ptr(), part_p.data_ptr(),
+            pbar.data_ptr(), n, m, d, family, int(symmetric), _MODES[mode], splits,
+            cuda.stream(x))
     cuda.check(err, "gram_bwd")
     cuda.LAUNCHES["gram_bwd"] += 1
-    return xbar, (0.5 * sums[0] if mode == "sym" else sums[0])
+    return xbar, (0.5 * pbar[0] if mode == "sym" else pbar[0])
 
 
 def logpdf_contraction_plain(xp, s2, alpha_g, alpha, gsum, T, family: int, params):

@@ -13,9 +13,11 @@ card, holds each hand-written kernel against its plain torch version at
 the shapes the main path gives it (the backward kernels also bit for bit
 against a second call; ``chol_block``, which no path runs, on blocks the
 main path produced, its launches counted in its own phase and its line
-marked ``"path": null``), times the kernels with CUDA events and the
-end-to-end paths on the host clock (each call ends in a device-to-host
-read), and traces one logpdf, one prediction and the gradient of each
+marked ``"path": null``), times the kernels with CUDA events (the block
+and backward kernels also in device time under ``torch.profiler``) and
+the end-to-end paths on the host clock (each call ends in a device-to-host
+read; the full width's four, the ragged width's prediction and
+gradient), and traces one logpdf, one prediction and the gradient of each
 with ``torch.profiler`` for the device time by kernel and the device's
 busy share.
 
@@ -284,23 +286,43 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 10, windows: int = 3):
     """Device time of one call of ``fn``: the summed durations of the kernels
-    it launched, under ``torch.profiler``, over ``iters`` calls. Unlike
-    ``cuda_ms`` it leaves out the host's cost of issuing the call, which
-    bounds ``cuda_ms`` for a kernel of tens of µs behind a Python wrapper."""
+    it launched, under ``torch.profiler``, per call over ``iters`` calls;
+    the median over ``windows`` traced windows that recorded every kernel.
+    On the card a window has recorded fewer kernels than the others, or
+    none (it then read below the kernel's byte bound, or 0), so a window
+    counts only when it holds as many kernel records as the fullest window
+    and at least one per call; up to 3·``windows`` are traced, and None is
+    returned when none is full. Unlike ``cuda_ms`` it leaves out the host's
+    cost of issuing the call, which bounds ``cuda_ms`` for a kernel of tens
+    of µs behind a Python wrapper."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / iters / 1e3
+    traced = []  # (kernel records, ms per call)
+    for _ in range(3 * windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced.append((len(spans), sum(spans) / iters / 1e3))
+        most = max(n for n, _ in traced)
+        full = sorted(ms for n, ms in traced if n == most and n >= iters)
+        if len(full) >= windows:
+            break
+    if not full:
+        print(f"device_ms: no traced window recorded the kernels: {traced}", flush=True)
+        return None
+    return full[len(full) // 2]
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -369,8 +391,8 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
         # block kernels the host's cost of issuing a call bounds cuda_ms
         r = recs[name]
         r["device_ms"], r["library_device_ms"] = device_ms(kernel_fn), device_ms(lib_fn)
-        print(f"[kernel {name}] device time per call {r['device_ms']:.4f} ms, library "
-              f"{r['library_device_ms']:.4f} ms", flush=True)
+        print(f"[kernel {name}] device time per call {_ms(r['device_ms'])} ms, library "
+              f"{_ms(r['library_device_ms'])} ms", flush=True)
 
     # gram_tile at the prediction cross-gram (n, m) (σ² is applied outside
     # it). Tolerance: d² rounding ≲ 8·eps·(‖x‖² + ‖z‖²) ≤ 1.2e-5 at D = 8,
@@ -464,9 +486,23 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     plain = cuda_ms(lambda: blocked_chol.tri_inv_block_plain(L, B), 2)
     blocks = torch.stack([L[i * B:(i + 1) * B, i * B:(i + 1) * B] for i in range(nb)])
     eyes = torch.eye(B, device=L.device).expand(blocks.shape)
-    lib = cuda_ms(lambda: torch.linalg.solve_triangular(blocks, eyes, upper=False), 20)
+
+    def lib_blocks():
+        return torch.linalg.solve_triangular(blocks, eyes, upper=False)
+
+    lib = cuda_ms(lib_blocks, 20)
     record("tri_inv_block", err, _tol_rel(kappa_l) * scale, ms, plain, lib,
            4.0 * nb * (B * (B + 1) / 2 + B * B), nb * B ** 3 / 3.0, [nb, B, B])
+    device_times("tri_inv_block", lambda: blocked_chol.tri_inv_block(L, B), lib_blocks)
+    # the ragged paths' launch: one block read in place (the row-panel trtri)
+    Lii = L[:B, :B]
+    r = recs["tri_inv_block"]
+    r["one_block_device_ms"] = device_ms(lambda: blocked_chol._pallas_diag_inv(Lii))
+    r["one_block_library_device_ms"] = device_ms(
+        lambda: torch.linalg.solve_triangular(Lii, eyeB, upper=False))
+    print(f"[kernel tri_inv_block] one block (ragged paths' launch): device time per call "
+          f"{_ms(r['one_block_device_ms'])} ms, library {_ms(r['one_block_library_device_ms'])} ms",
+          flush=True)
     return recs
 
 
@@ -522,14 +558,14 @@ def backward_kernel_checks(contr_in, bwd_in):
               flush=True)
         return a, same
 
-    def record(name, err, ok, ms, plain_ms, nbytes, flops, shape):
+    def record(name, err, ok, fn, plain_ms, nbytes, flops, shape):
+        # the time through the wrapper (CUDA events) and the device time
         b, by = bound_ms(nbytes, flops)
-        print(f"[kernel {name}] shape {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library None ms, bound {b:.4f} ms ({by})", flush=True)
-        recs.setdefault(name, dict(max_abs_err=err, tol=None, ms=ms, plain_ms=plain_ms,
-                                   library_ms=None, bound_ms=b, bound_by=by, ok=ok,
-                                   shape=shape))
-        recs[name]["ok"] = recs[name]["ok"] and ok
+        ms, dev = cuda_ms(fn, 20), device_ms(fn)
+        print(f"[kernel {name}] shape {shape}: {ms:.4f} ms, device time per call {_ms(dev)} ms, "
+              f"plain {plain_ms:.4f} ms, library None ms, bound {b:.4f} ms ({by})", flush=True)
+        return dict(max_abs_err=err, tol=None, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                    library_ms=None, bound_ms=b, bound_by=by, ok=ok, shape=shape)
 
     # logpdf_contraction at the full-width ∇logpdf. Operations: C and g(d²)
     # are symmetric, so d², C (2q + 3) and the map VJP are needed once per
@@ -548,17 +584,20 @@ def backward_kernel_checks(contr_in, bwd_in):
     mag = xbar_mag(Ct * s2 * dg, xp, xp, 4.0)
     del Tl, Ct, dg
     err, ok = compare("logpdf_contraction", got, want, mag, n, [n, d, q])
-    ms = cuda_ms(lambda: fused_gram.logpdf_contraction(*contr_in), 20)
     plain = cuda_ms(lambda: fused_gram.logpdf_contraction_plain(xp, s2, ag, a, gsum, T, fam,
                                                                 pbuf), 3)
-    record("logpdf_contraction", err, ok and same, ms, plain,
-           4.0 * (n * (n + 1) / 2 + 2 * n * d + 2 * n * q),
-           sweep_flops(n, n, d, fam, True, 2 * q + 3, 4), [n, d, q])
+    recs["logpdf_contraction"] = record(
+        "logpdf_contraction", err, ok and same,
+        lambda: fused_gram.logpdf_contraction(*contr_in), plain,
+        4.0 * (n * (n + 1) / 2 + 2 * n * d + 2 * n * q),
+        sweep_flops(n, n, d, fam, True, 2 * q + 3, 4), [n, d, q])
 
     # gram_bwd in each mode of the ∇prediction: the symmetric single sweep
     # (cholesky_gram's backward, C + Cᵀ, the sum once per pair) first, then
     # the cross gram's two passes; bytes: the cotangent read once, x, z read
-    # and x̄ written once
+    # and x̄ written once. The kernel's line sums the three modes (one
+    # ∇prediction's calls) and lists each under "modes".
+    modes = {}
     for mode in ("sym", "plain", "transpose"):
         x_, z_, C, fam, params, sym, _ = bwd_in[mode]
         n, d = x_.shape
@@ -572,10 +611,19 @@ def backward_kernel_checks(contr_in, bwd_in):
         del Ct, dg
         # (x̄, p̄) → compare as (p̄, x̄)
         err, ok = compare(f"gram_bwd {mode}", got[::-1], want[::-1], mag, m, [n, m, d])
-        ms = cuda_ms(lambda: fused_gram.gram_bwd(*bwd_in[mode]), 20)
         plain = cuda_ms(lambda: fused_gram.gram_bwd_plain(x_, z_, C, fam, pbuf, sym, mode), 3)
-        record("gram_bwd", err, ok and same, ms, plain, 4.0 * (n * m + (2 * n + m) * d),
-               sweep_flops(n, m, d, fam, sym, int(sym), 1), [n, m, d])
+        modes[mode] = record(f"gram_bwd {mode}", err, ok and same,
+                             lambda: fused_gram.gram_bwd(*bwd_in[mode]), plain,
+                             4.0 * (n * m + (2 * n + m) * d),
+                             sweep_flops(n, m, d, fam, sym, int(sym), 1), [n, m, d])
+    total = {k: (None if any(r[k] is None for r in modes.values())
+                 else sum(r[k] for r in modes.values()))
+             for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    recs["gram_bwd"] = dict(total, max_abs_err=max(r["max_abs_err"] for r in modes.values()),
+                            library_ms=None, bound_by="bytes"
+                            if all(r["bound_by"] == "bytes" for r in modes.values())
+                            else "operations",
+                            ok=all(r["ok"] for r in modes.values()), modes=modes)
     return recs
 
 
@@ -809,6 +857,24 @@ def main(argv=None) -> int:
           f"({1.0 / grad_s:.3f} evals/s); pred grad {pred_grad_s * 1e3:.3f} ms "
           f"({1.0 / pred_grad_s:.3f} evals/s); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # the ragged width's prediction and gradient, which run the row-panel
+    # trtri (36 one-block tri_inv_block launches each)
+    def pred_ragged_once():
+        p = agt.posterior(agt.GP(kernel_r)(xr, NOISE), yr)
+        m_, v_ = p.mean_and_var(xsr)
+        return float((m_.sum() + v_.sum()).detach())
+
+    theta_r = caller_theta(s2r, ellr, dev, f32)
+    ragged_s = {}
+    for name, fn in (("pred", pred_ragged_once), ("grad", lambda: run_grad_path(theta_r, xr, yr))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        ragged_s[name] = (time.perf_counter() - t0) / 3
+    print(f"[e2e] N={N_RAGGED} D={D} M={M_RAGGED} f32: pred {ragged_s['pred'] * 1e3:.3f} ms; "
+          f"grad {ragged_s['grad'] * 1e3:.3f} ms", flush=True)
     profile_breakdown("logpdf", logpdf_once)
     profile_breakdown("pred", pred_once)
     profile_breakdown("grad", grad_once, top=14)
@@ -826,6 +892,10 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r.get("device_ms"),
             "library_device_ms": r.get("library_device_ms"),
+            **{k: r[k] for k in ("one_block_device_ms", "one_block_library_device_ms")
+               if k in r},
+            **({"modes": {m_: {k: v for k, v in mr.items() if k not in ("ok", "tol")}
+                          for m_, mr in r["modes"].items()}} if "modes" in r else {}),
         })
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import abstractgps_tpu_torch as agt
-from abstractgps_tpu_torch.ops import blocked_chol, cuda as cuda_ops, fused_gram
+from abstractgps_tpu_torch.ops import blocked_chol, cuda as cuda_ops, fused_gram, precision
 
 pytestmark = pytest.mark.gpu
 
@@ -161,6 +161,47 @@ def test_tri_inv_block_batched_and_strided(cuda, gen):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("nb", [1, 36, 64])
+@pytest.mark.parametrize("B", [8, 64, 120, 128])
+def test_tri_inv_block_shapes_strides_and_contract(cuda, gen, B, nb):
+    # nb lower-triangular diagonal blocks in an (nB, nB) matrix that holds
+    # NaN everywhere else, above each block's diagonal too: a read outside
+    # the blocks' lower triangles poisons the result
+    n = nb * B
+    blocks = np.tril(gen.normal(size=(nb, B, B)) * (0.5 / math.sqrt(B)), -1)
+    blocks += np.eye(B) * gen.uniform(1.0, 2.0, size=(nb, 1, B))
+    kappa = max(np.linalg.cond(b) for b in blocks)
+    garbage = torch.triu(torch.full((B, B), math.nan), 1)
+    L = torch.full((n, n + 16), math.nan, device=cuda)  # row stride n + 16
+    for i in range(nb):
+        L[i * B:(i + 1) * B, i * B:(i + 1) * B] = (torch.as_tensor(blocks[i], dtype=torch.float32)
+                                                   + garbage).to(cuda)
+    L = L[:, :n]
+    got = _launched("tri_inv_block", lambda: blocked_chol.tri_inv_block(L, B))
+    want = blocked_chol.tri_inv_block_plain(L, B)
+    assert got.shape == (nb, B, B) and torch.isfinite(got).all()
+    assert torch.all(torch.triu(got, 1) == 0)
+    # both are forward substitutions in f32 with sums in another order
+    _close(got, want, rel=10.0 * kappa * EPS32)
+    f64 = torch.linalg.inv(torch.as_tensor(blocks)).to(cuda)
+    _close(got.double(), f64, rel=10.0 * kappa * EPS32)
+    # a column-major copy is taken too (copied to row-major by the wrapper)
+    L_cm = L.T.contiguous().T
+    torch.testing.assert_close(blocked_chol.tri_inv_block(L_cm, B), got, rtol=0, atol=0)
+    # one block read in place, as the row-panel trtri calls it
+    i = nb // 2
+    one = _launched("tri_inv_block", lambda: blocked_chol._pallas_diag_inv(
+        L[i * B:(i + 1) * B, i * B:(i + 1) * B]))
+    torch.testing.assert_close(one, got[i], rtol=0, atol=0)
+
+
+def test_tri_inv_block_takes_edges_that_are_multiples_of_8(cuda):
+    with pytest.raises(ValueError):
+        blocked_chol.tri_inv_block(torch.eye(100, device=cuda), 50)
+    with pytest.raises(ValueError):
+        blocked_chol._pallas_diag_inv(torch.eye(60, device=cuda))
+
+
 def test_cuda_tensors_never_take_the_plain_version(cuda):
     A = torch.eye(128, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
@@ -251,6 +292,83 @@ def test_gram_bwd_matches_plain(cuda, gen, family, mode):
     assert abs(float(got[1]) - float(want[1])) <= 1e-4 * (abs(float(want[1])) + 1e-6)
     again = fused_gram.gram_bwd(x, z, C, family, params, sym, mode)
     assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+# (rows of the row operand x, rows of the column operand z) per mode: a
+# ragged edge in both, and the ∇prediction's three shapes at full width
+_BWD_SHAPES = {"ragged": {"sym": (1000, 1000), "plain": (1000, 700), "transpose": (700, 1000)},
+               "full": {"sym": (8192, 8192), "plain": (8192, 4096), "transpose": (4096, 8192)}}
+
+
+# D: the main path's 8, then each register width of the kernel (8, 16, 32
+# features a row) with features past D zero-padded (1, 3, 12, 32), and
+# 32-feature chunks past 32 (40, 70)
+@pytest.mark.parametrize("size,family,d", [("ragged", 2, 8), ("ragged", 4, 8), ("full", 2, 8),
+                                           ("ragged", 2, 1), ("ragged", 4, 3),
+                                           ("ragged", 2, 12), ("ragged", 4, 32),
+                                           ("ragged", 2, 40), ("ragged", 4, 70)])
+@pytest.mark.parametrize("mode", ["sym", "plain", "transpose"])
+def test_gram_bwd_split_sweep(cuda, gen, mode, size, family, d):
+    n, m = _BWD_SHAPES[size][mode]
+    x = torch.as_tensor(gen.uniform(size=(n, d)), dtype=torch.float32, device=cuda)
+    z = x if mode == "sym" else torch.as_tensor(gen.uniform(size=(m, d)),
+                                                dtype=torch.float32, device=cuda)
+    shape = (m, n) if mode == "transpose" else (n, m)
+    C = torch.as_tensor(gen.normal(size=shape), dtype=torch.float32, device=cuda)
+    params = _params(family, cuda)
+    pbuf = fused_gram._params_buffer(params, cuda)
+    sym = mode == "sym"
+    got = _launched("gram_bwd", lambda: fused_gram.gram_bwd(x, z, C, family, params, sym, mode))
+    want = fused_gram.gram_bwd_plain(x, z, C, family, pbuf, sym, mode)
+    # as chip_smoke.py holds it: x̄ sums m f32 terms in another order and
+    # form than the plain version, within 2·√m·eps of the sum of the terms'
+    # magnitudes, entry by entry; the bar within 1e-4 relative
+    Ct = C.T if mode == "transpose" else (C + C.T if sym else C)
+    _, dg, _ = fused_gram._map_vjp(family, fused_gram._sqdist_plain(x, z, sym), pbuf)
+    w = (Ct * dg).abs()
+    with precision.full_f32():
+        mag = 2.0 * (w.sum(1, keepdim=True) * x.abs() + w @ z.abs())
+    del Ct, dg, w
+    assert torch.all((got[0] - want[0]).abs() <= 2.0 * math.sqrt(m) * EPS32 * mag)
+    assert abs(float(got[1]) - float(want[1])) <= 1e-4 * abs(float(want[1]))
+    again = fused_gram.gram_bwd(x, z, C, family, params, sym, mode)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    # a cotangent whose rows are not 16-byte aligned takes 4-byte copies:
+    # the same values, the same bits
+    Cu = torch.empty((shape[0], shape[1] + 1), device=cuda)[:, 1:]
+    Cu.copy_(C)
+    odd = fused_gram.gram_bwd(x, z, Cu, family, params, sym, mode)
+    assert torch.equal(odd[0], got[0]) and torch.equal(odd[1], got[1])
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_gram_with_40_features_runs_both_kernels(cuda, gen, same):
+    # the gate takes any D: the gram goes through kernel 1 and its VJP
+    # through kernel 6 (two 32-feature chunks), not the unfused formulation
+    x = torch.as_tensor(gen.uniform(size=(600, 40)), dtype=torch.float32, device=cuda)
+    z = x if same else torch.as_tensor(gen.uniform(size=(530, 40)), dtype=torch.float32,
+                                       device=cuda)
+    x.requires_grad_(True)
+    z.requires_grad_(True)
+    assert fused_gram.should_use_kernel(x, z)
+    k = agt.Matern32Kernel()
+    before = {name: cuda_ops.LAUNCHES[name] for name in ("gram_tile", "gram_bwd")}
+    K = k.gram(x) if same else k.cross(x, z)
+    C = torch.as_tensor(gen.normal(size=tuple(K.shape)), dtype=torch.float32, device=cuda)
+    bars = torch.autograd.grad((K * C).sum(), (x,) if same else (x, z))
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["gram_tile"] == before["gram_tile"] + 1
+    assert cuda_ops.LAUNCHES["gram_bwd"] == before["gram_bwd"] + (1 if same else 2)
+    xd, zd, pbuf = x.detach(), z.detach(), fused_gram._params_buffer((), cuda)
+    K0 = fused_gram.gram_tile_plain(xd, zd, 2, pbuf, same)
+    assert float((K.detach() - K0).abs().max()) <= 3e-5
+    if same:
+        want = [fused_gram.gram_bwd_plain(xd, xd, C, 2, pbuf, True, "sym")[0]]
+    else:
+        want = [fused_gram.gram_bwd_plain(xd, zd, C, 2, pbuf, False, "plain")[0],
+                fused_gram.gram_bwd_plain(zd, xd, C, 2, pbuf, False, "transpose")[0]]
+    for got, w in zip(bars, want):  # as in test_gram_bwd_matches_plain
+        assert float((got - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 @pytest.mark.parametrize("family", [2, 4])

@@ -307,6 +307,39 @@ def test_convert_round_trip_and_refusals(rng):
     assert iso.n == 3
 
 
+def test_convert_follows_the_default_device():
+    # weights carried across land where as_tensor puts inputs: on the
+    # package's default device, and never on the CPU when that is "cuda"
+    kernel = {"type": "ScaledKernel", "variance": np.array(1.3),
+              "kernel": {"type": "Matern32Kernel"}}
+    mean = {"type": "ConstMean", "c": np.array(0.5)}
+    noise = {"type": "DiagonalNoise", "variances": np.ones(3)}
+    params = {"s2": {"type": "Positive", "raw": np.array(0.2)}, "c": np.array(1.0)}
+    calls = (lambda: list(agt.kernel_from_numpy(kernel).parameters()),
+             lambda: [agt.mean_from_numpy(mean).c],
+             lambda: [agt.noise_from_numpy(noise).variances],
+             lambda: [agt.params_from_numpy(params)["s2"].raw,
+                      agt.params_from_numpy(params)["c"]])
+    before = agt.get_default_device()
+    try:
+        for device in ("cpu", "meta"):
+            agt.set_default_device(device)
+            for call in calls:
+                assert all(t.device.type == device for t in call())
+        agt.set_default_device("cpu")
+        assert agt.kernel_from_numpy(kernel, device="meta").variance.device.type == "meta"
+        agt.set_default_device("cuda")
+        for call in calls:
+            if torch.cuda.is_available():
+                assert all(t.is_cuda for t in call())
+            else:
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    call()
+    finally:
+        agt.set_default_device(before)
+    assert agt.get_default_device() == before
+
+
 def test_precision_policy_scopes_tf32():
     torch.backends.cuda.matmul.allow_tf32 = True
     seen = []

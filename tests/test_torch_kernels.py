@@ -128,6 +128,25 @@ def test_tri_inv_block_matches_pallas(rng):
                                np.asarray(one), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n,m", [(8192, 8192), (8192, 4096), (4096, 8192), (1000, 700),
+                                 (64, 64), (100, 1), (200000, 300)])
+def test_gram_bwd_column_splits_cover_each_tile_once(n, m):
+    # gram_bwd's grid: S column splits of the ⌈m/64⌉ tiles, fixed by (n, m)
+    # alone (the signature takes nothing else), so the same shapes always
+    # sum their partials in the same order; csrc/gram_bwd.cu gives split s
+    # the tiles [s·T // S, (s+1)·T // S), which cover each tile once for
+    # any 1 ≤ S ≤ T
+    S = fused_gram.column_split_count(n, m)
+    tiles, rows = -(-m // 64), -(-n // 64)
+    assert isinstance(S, int) and 1 <= S <= tiles
+    ranges = [(s * tiles // S, (s + 1) * tiles // S) for s in range(S)]
+    assert [t for t0, t1 in ranges for t in range(t0, t1)] == list(range(tiles))
+    assert all(t1 > t0 for t0, t1 in ranges)
+    # at least ~4 CTAs per SM of 132, unless every tile is a split already
+    assert S == tiles or rows * S >= 4 * 132
+    assert S == 1 or rows * (S - 1) < 8 * 132
+
+
 @pytest.mark.parametrize("n", [150, 128])
 def test_cholesky_gram_with_carried_rhs(rng, n, _small_paths):
     # n=150: two 64-wide slabs through the slab path + a 32-wide tail slab
