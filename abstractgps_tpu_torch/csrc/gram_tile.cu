@@ -1,86 +1,189 @@
-// gram_tile: fused isotropic gram tile, K[i][j] = g(max(|x_i|^2 + |z_j|^2 - 2 x_i.z_j, 0)).
+// gram_tile: fused isotropic gram, K[i][j] = g(max(|x_i|^2 + |z_j|^2 - 2 x_i.z_j, 0)).
 //
 // Replaces abstractgps_tpu/ops/pallas_gram.py:128 (_fused_fwd_impl, pallas_call at :160).
-// Bound on the H100: the n*m*4 output bytes (D is small, 2*D flops per entry), so the
-// kernel is memory-bound. Design: one 64x64 output tile per CTA, 16x16 threads with 4x4
-// outputs each; the x and z row tiles are staged in shared memory in feature chunks of 32,
-// the row norms are accumulated from the same staged values, and the map g is applied in
-// the epilogue (agp::apply_map, gram_sweep.cuh, shared with the backward sweeps) so d^2 never
-// reaches device memory. Plain FP32 FMA, no tensor cores: the
-// distance expansion is cancellation-prone and must run at full f32.
+// Bound on the H100: the n*m*4 output bytes (0.040 ms for 8192 x 4096 at 3.35 TB/s); the 2D + 3
+// operations of d^2 and the map's ~10 an entry stay under the FP32 rate for those bytes at
+// D = 8, but not by much, so the design keeps the entry loop lean as well as the stores wide.
+//
+// Design: one CTA of 256 threads per 128 x 128 output tile (2048 CTAs at 8192 x 4096, three
+// an SM at D <= 8). The family and KD (8, 16, 32 features held per column; a wide path past
+// 32) are template parameters, so the map's switch folds away. The tile's rows of x land in
+// shared memory as they lie (128 x d floats, 16-byte cp.async where x is 16-byte aligned) and
+// z's 128 rows land transposed ([k][c], 4-byte cp.async, true width d). Each thread owns 4
+// contiguous columns (their features in registers, read as one float4 per feature) and forms
+// their |z_j|^2 there, once; |x_i|^2 is formed from the staged rows; both by the same sequential
+// FMA chain, so a symmetric gram is symmetric to the bit, and no launch of its own (a first
+// norms pass, as the sweeps take, costs more than the 4 * D FMAs a thread at these shapes).
+// Each thread walks 16 rows, warp w taking rows w, w + 8, ...: per row it forms 4 dot products
+// by FP32 FMA (no TF32, no tensor cores: ops/precision.py), applies g, and stores the 4 entries
+// as one float4 streaming store when m % 4 == 0 and out is 16-byte aligned (else as 4 scalar
+// ones), so a warp writes 512 contiguous bytes per row. Past 32 features the dot products read
+// x and z through L1 (untuned; the main path has D = 8). The `symmetric` rule: d^2 = 0 where
+// i == j.
 #include "gram_sweep.cuh"
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kThreads = 16;
-constexpr int kChunk = 32;
+constexpr int kRows = 128;     // output rows of a CTA
+constexpr int kCols = 128;     // output columns of a CTA: 4 a lane
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kZStride = 132;  // floats per feature row of the transposed z tile
 
-__global__ void gram_tile_kernel(const float* __restrict__ x, const float* __restrict__ z,
-                                 float* __restrict__ out, const float* __restrict__ params,
-                                 int n, int m, int d, int family, int symmetric) {
-  __shared__ float xs[kChunk][kTile + 1];
-  __shared__ float zs[kChunk][kTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kThreads + tx;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
+// dynamic shared floats: x's rows, z's rows transposed, |x_i|^2
+__host__ __device__ constexpr int tile_floats(int d, bool wide) {
+  return wide ? kRows : kRows * d + d * kZStride + kRows;
+}
 
-  float dot[4][4] = {};
-  float nx[4] = {}, nz[4] = {};
-  for (int k0 = 0; k0 < d; k0 += kChunk) {
-    const int kc = min(kChunk, d - k0);
-    for (int e = tid; e < kTile * kChunk; e += kThreads * kThreads) {
-      const int r = e / kChunk, k = e % kChunk;
-      float xv = 0.f, zv = 0.f;
-      if (k < kc) {
-        if (row0 + r < n) xv = x[(long)(row0 + r) * d + k0 + k];
-        if (col0 + r < m) zv = z[(long)(col0 + r) * d + k0 + k];
+template <int F, int KD, bool kWide>
+__global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
+    gram_tile_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                     float* __restrict__ out, const float* __restrict__ params, int n, int m,
+                     int d, int symmetric, int vec_in, int vec_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.y * kRows, col0 = blockIdx.x * kCols;
+  const int nrows = min(kRows, n - row0);
+  float* xs = smem;                                    // [r][k], true width d
+  float* zs = smem + kRows * d;                        // [k][c], row stride kZStride
+  float* xn = smem + (kWide ? 0 : kRows * d + d * kZStride);
+
+  if (!kWide) {
+    const float* xsrc = x + (long)row0 * d;  // the tile's rows are one contiguous run
+    const int xcount = nrows * d;
+    if (vec_in) {
+      for (int e = 4 * tid; e < kRows * d; e += 4 * kThreads) {
+        const int valid = min(max(xcount - e, 0), 4);
+        agp::cp_async16(xs + e, valid ? xsrc + e : x, 4 * valid);
       }
-      xs[k][r] = xv;
-      zs[k][r] = zv;
+    } else {
+      for (int e = tid; e < kRows * d; e += kThreads)
+        agp::cp_async4(xs + e, e < xcount ? xsrc + e : x, e < xcount ? 4 : 0);
     }
-    __syncthreads();
-    for (int k = 0; k < kc; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + kThreads * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = zs[k][tx + kThreads * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        nx[i] = fmaf(a[i], a[i], nx[i]);
-        nz[i] = fmaf(b[i], b[i], nz[i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
-      }
+    const float* zsrc = z + (long)col0 * d;
+    const int zcount = min(kCols, m - col0) * d;
+    for (int e = tid; e < kCols * d; e += kThreads) {
+      const int c = e / d, k = e - c * d;
+      agp::cp_async4(zs + k * kZStride + c, e < zcount ? zsrc + e : z, e < zcount ? 4 : 0);
     }
+    agp::cp_async_commit();
+    agp::cp_async_wait<0>();
     __syncthreads();
+    if (tid < kRows) {
+      float s = 0.f;
+      for (int k = 0; k < d; ++k) s = fmaf(xs[tid * d + k], xs[tid * d + k], s);
+      xn[tid] = s;
+    }
+  } else if (tid < kRows) {
+    const float* xrow = x + (long)min(row0 + tid, n - 1) * d;
+    float s = 0.f;
+    for (int k = 0; k < d; ++k) s = fmaf(xrow[k], xrow[k], s);
+    xn[tid] = s;
   }
 
-  const float p0 = (family == 4 || family == 5) ? params[0] : 0.f;
+  // this thread's 4 columns: features (zero past d) and norms
+  const int c0 = col0 + 4 * lane;
+  float zc[4][KD], nz[4];
+  if (!kWide) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + kThreads * i;
-    if (r >= n) continue;
+    for (int k = 0; k < KD; ++k) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < d) v = *reinterpret_cast<const float4*>(zs + k * kZStride + 4 * lane);
+      zc[0][k] = v.x; zc[1][k] = v.y; zc[2][k] = v.z; zc[3][k] = v.w;
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + kThreads * j;
-      if (c >= m) continue;
-      float d2 = fmaxf(nx[i] + nz[j] - 2.f * dot[i][j], 0.f);
-      if (symmetric && r == c) d2 = 0.f;
-      out[(long)r * m + c] = agp::apply_map(family, d2, p0);
+      nz[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < KD; ++k) nz[j] = fmaf(zc[j][k], zc[j][k], nz[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* zrow = z + (long)min(c0 + j, m - 1) * d;
+      nz[j] = 0.f;
+      for (int k = 0; k < d; ++k) nz[j] = fmaf(zrow[k], zrow[k], nz[j]);
+    }
+  }
+  __syncthreads();  // xn
+  const float p0 = (F == 4 || F == 5) ? params[0] : 0.f;
+
+#pragma unroll 1
+  for (int rl = warp; rl < nrows; rl += kThreads / 32) {
+    const int r = row0 + rl;
+    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    if (kWide) {
+      const float* xrow = x + (long)r * d;
+      const float* zrow[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) zrow[j] = z + (long)min(c0 + j, m - 1) * d;
+      for (int k = 0; k < d; ++k) {
+        const float xv = xrow[k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dot[j] = fmaf(xv, zrow[j][k], dot[j]);
+      }
+    } else {
+      const float* xrow = xs + rl * d;
+#pragma unroll
+      for (int k = 0; k < KD; ++k) {
+        const float xv = k < d ? xrow[k] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dot[j] = fmaf(xv, zc[j][k], dot[j]);
+      }
+    }
+    const float nxr = xn[rl];
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float d2 = fmaxf(nxr + nz[j] - 2.f * dot[j], 0.f);
+      if (symmetric && r == c0 + j) d2 = 0.f;
+      v[j] = agp::apply_map(F, d2, p0);
+    }
+    float* dst = out + (long)r * m + c0;
+    if (vec_out) {
+      if (c0 < m) __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + j < m) __stcs(dst + j, v[j]);
     }
   }
 }
 
+template <int F, int KD, bool kWide>
+int launch(const float* x, const float* z, float* out, const float* params, int n, int m, int d,
+           int symmetric, int vec_in, int vec_out, cudaStream_t stream) {
+  const int smem = tile_floats(d, kWide) * (int)sizeof(float);  // <= 33.8 KB at d <= 32
+  const dim3 grid((m + kCols - 1) / kCols, (n + kRows - 1) / kRows);
+  gram_tile_kernel<F, KD, kWide><<<grid, kThreads, smem, stream>>>(
+      x, z, out, params, n, m, d, symmetric, vec_in, vec_out);
+  return (int)cudaGetLastError();
+}
+
+template <int F>
+int launch_family(const float* x, const float* z, float* out, const float* params, int n, int m,
+                  int d, int symmetric, int vec_in, int vec_out, cudaStream_t stream) {
+  if (d <= 8)
+    return launch<F, 8, false>(x, z, out, params, n, m, d, symmetric, vec_in, vec_out, stream);
+  if (d <= 16)
+    return launch<F, 16, false>(x, z, out, params, n, m, d, symmetric, vec_in, vec_out, stream);
+  if (d <= 32)
+    return launch<F, 32, false>(x, z, out, params, n, m, d, symmetric, vec_in, vec_out, stream);
+  return launch<F, 32, true>(x, z, out, params, n, m, d, symmetric, vec_in, vec_out, stream);
+}
+
 }  // namespace
 
+// x (n, d), z (m, d) row-major; out (n, m); params: the map's hyperparameter buffer. One launch.
 extern "C" int agp_gram_tile(const float* x, const float* z, float* out, const float* params,
                              int n, int m, int d, int family, int symmetric,
                              cudaStream_t stream) {
   if (family < 0 || family > 6 || n <= 0 || m <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  const dim3 block(kThreads, kThreads);
-  gram_tile_kernel<<<grid, block, 0, stream>>>(x, z, out, params, n, m, d, family, symmetric);
-  return (int)cudaGetLastError();
+  const int vec_in = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_out = m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  using Launch = int (*)(const float*, const float*, float*, const float*, int, int, int, int,
+                         int, int, cudaStream_t);
+  constexpr Launch by_family[7] = {launch_family<0>, launch_family<1>, launch_family<2>,
+                                   launch_family<3>, launch_family<4>, launch_family<5>,
+                                   launch_family<6>};
+  return by_family[family](x, z, out, params, n, m, d, symmetric, vec_in, vec_out, stream);
 }

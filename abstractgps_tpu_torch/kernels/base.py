@@ -25,6 +25,7 @@ from torch import nn
 from ..means import as_param
 from ..ops.distance import as_inputs, as_tensor
 from ..ops.precision import precise
+from ..params import leaves
 
 __all__ = [
     "Kernel",
@@ -190,7 +191,9 @@ class LinearTransform(nn.Module):
 class FunctionTransform(nn.Module):
     """x → fn(params, x) for an arbitrary batched feature map (the
     deep-kernel-learning path). ``params`` is an ``nn.Module`` (registered,
-    so its parameters train with the kernel), a tensor, or None."""
+    so its parameters train with the kernel), a tensor, a tree of tensors
+    in lists, tuples and dicts (as ``params.constrain`` builds it), or
+    None."""
 
     def __init__(self, params, fn):
         super().__init__()
@@ -224,14 +227,21 @@ class TransformedKernel(Kernel):
 
 def hyperparameters(module: nn.Module) -> list:
     """The hyperparameter tensors of a kernel's module tree, in a fixed
-    order: its ``nn.Parameter``s and its plain tensor attributes (a caller's
+    order: its ``nn.Parameter``s, its plain tensor attributes (a caller's
     tensor that requires grad, or one computed from it, as ``as_param``
-    keeps them). The custom autograd Functions take these as inputs, so
-    their backwards reach every hyperparameter."""
+    keeps them) and the tensors nested in lists, tuples and dicts held as
+    attributes (a ``FunctionTransform``'s parameter tree), in
+    ``params.leaves`` order. Each tensor is listed once. The custom
+    autograd Functions take these as inputs, so their backwards reach every
+    hyperparameter."""
     seen, out = set(), []
     for m in module.modules():
-        cands = list(m._parameters.values()) + [
-            v for v in vars(m).values() if isinstance(v, torch.Tensor)]
+        cands = list(m._parameters.values())
+        for name, v in vars(m).items():
+            if isinstance(v, torch.Tensor):
+                cands.append(v)
+            elif isinstance(v, (list, tuple, dict)) and not name.startswith("_"):
+                cands.extend(leaves(v))
         for t in cands:
             if t is not None and t.is_floating_point() and id(t) not in seen:
                 seen.add(id(t))

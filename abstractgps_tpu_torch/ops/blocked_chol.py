@@ -51,8 +51,8 @@ Backward passes (``torch.autograd.Function``s, the JAX package's
 ``custom_vjp``/``custom_jvp`` rules written as reverse rules):
 
 - ``pallas_cholesky`` and ``cholesky_gram``: Murray's pullback
-  Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹), its two solves as the doubling trtri (diagonal
-  blocks through ``tri_inv_block``) and TRMMs; ``cholesky_gram`` then
+  Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹), its two solves as triangular substitutions
+  (``torch.linalg.solve_triangular``), as the reference does them; ``cholesky_gram`` then
   takes the VJP of K(x, x) + diag(noise) through ``kernel.gram`` (the
   gram VJP kernel ``fused_gram.gram_bwd`` at size).
 - ``gram_logpdf_core``: ∂logpdf/∂K = ½(ααᵀ − K⁻¹), with tril(K⁻¹) from the
@@ -401,12 +401,14 @@ def _blocked_cholesky_impl(A: torch.Tensor, block: int) -> torch.Tensor:
 def _chol_pullback(L: torch.Tensor, Lbar: torch.Tensor) -> torch.Tensor:
     """Ā = sym(L⁻ᵀ Φ(Lᵀ L̄) L⁻¹), Φ = strict lower + ½·diag (Murray 2016):
     the reverse rule of L = chol(A) (the JAX package's ``custom_jvp`` at
-    ``pallas_chol.py:674`` and ``_cholesky_gram_bwd`` at :794). The solves
-    are one trtri and two TRMMs at IEEE f32."""
+    ``pallas_chol.py:674`` and ``_cholesky_gram_bwd`` at :794). As there,
+    the two solves are triangular substitutions, Y = L⁻ᵀP and
+    Ā = (L⁻ᵀYᵀ)ᵀ, at IEEE f32: an explicit L⁻¹ loses ~10× in accuracy."""
     M = _mm(L.T, torch.tril(Lbar))
     P = torch.tril(M, -1) + 0.5 * torch.diag(torch.diagonal(M))
-    W = _wide_inverse(L)
-    Abar = _trmm_lr(_trmm_ul(W, P), W)
+    with full_f32():
+        Y = torch.linalg.solve_triangular(L.T, P, upper=True)
+        Abar = torch.linalg.solve_triangular(L.T, Y.T, upper=True).T
     return 0.5 * (Abar + Abar.T)
 
 

@@ -12,12 +12,15 @@ the hand-written kernel ``csrc/gram_tile.cu``; on a CPU tensor it runs
 ``gram_tile`` — source note:
   replaces ``abstractgps_tpu/ops/pallas_gram.py:128`` (``_fused_fwd_impl``,
   ``pallas_call`` at :160). On the H100 it is bound by bytes: it writes
-  n·m·4 bytes and does 2·D flops per entry at D = 8. Design: 64×64 output
-  tiles per CTA, x/z row tiles staged in shared memory, norms from the
-  staged values, the map g in the epilogue, FP32 FMA only. The kernel masks
-  its ragged edge, so inputs are not padded to the tile (the Pallas
-  ``_pad_rows`` has no counterpart). Hyperparameters of g (RQ α, γ) go in a
-  small device buffer, never through a host read.
+  n·m·4 bytes and does 2·D + 3 flops and the map per entry. Design: a
+  128×128 output tile per CTA, the family and feature width as template
+  parameters; x's rows and z's rows (transposed) staged at their true width
+  with ``cp.async``; a thread owns 4 contiguous columns (features and
+  norms in registers, formed once) and stores them as one
+  ``float4`` streaming store where the rows allow it; FP32 FMA only. The
+  kernel masks its ragged edge, so inputs are not padded to the tile (the
+  Pallas ``_pad_rows`` has no counterpart). Hyperparameters of g (RQ α, γ)
+  go in a small device buffer, never through a host read.
 
 ``gram_bwd`` — source note (``csrc/gram_bwd.cu``):
   replaces ``abstractgps_tpu/ops/pallas_gram.py:185`` (``_bwd_pass``,
@@ -37,10 +40,12 @@ the hand-written kernel ``csrc/gram_tile.cu``; on a CPU tensor it runs
   replaces ``abstractgps_tpu/ops/pallas_gram.py:359`` (``logpdf_contraction``,
   ``pallas_call`` at :458), the logpdf backward's contraction with the
   cotangent C = ½(α·ḡ·αᵀ − ḡΣ·sym(T)) built per tile from T = tril(K⁻¹).
-  Bound by bytes: it reads T's lower triangle twice (n²·4 bytes), C is
-  never stored. One CTA per 64-row block sweeps the column tiles
-  (``csrc/gram_sweep.cuh``); the nearly cancelling σ² sum accumulates in
-  FP64 (the TPU kernel's Neumaier sums).
+  Bound by bytes: it needs T's lower triangle once (reading it twice,
+  n²·4 bytes), C is never stored. The column-split sweep of kernel 6
+  (``csrc/gram_sweep.cuh``) with T's tiles as the cotangent: a lower tile
+  read as it lies, an upper one as its mirrored lower tile, so T's strict
+  upper triangle is never read; the nearly cancelling σ² sum accumulates
+  in FP64 (the TPU kernel's Neumaier sums).
 
 Both return the same bits for the same inputs (no float atomics).
 """
@@ -239,14 +244,15 @@ def plain_isotropic_gram(kernel, x: torch.Tensor, z: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _MODES = {"plain": 0, "transpose": 1, "sym": 2}
-_TILE = 64  # rows of a row block, columns of a column tile (csrc/gram_bwd.cu)
+_TILE = 64  # rows of a row block, columns of a column tile (csrc/gram_sweep.cuh)
 # gram_bwd's grid aims at this many CTAs per SM of one H100 (132 SMs); a
 # constant, so that the split, and with it the bits, follow from (n, m)
 _SPLIT_CTAS = 8 * 132
 
 
 def column_split_count(n: int, m: int) -> int:
-    """S, the column splits of ``gram_bwd``'s grid: the least count that
+    """S, the column splits of the backward sweeps' grid (``gram_bwd``,
+    ``logpdf_contraction``): the least count that
     gives ``_SPLIT_CTAS`` CTAs with the ⌈n/64⌉ row blocks, at most the
     T = ⌈m/64⌉ column tiles. A function of (n, m) alone; the kernel gives
     split s the tiles ``[s·T // S, (s+1)·T // S)``."""
@@ -348,7 +354,8 @@ def logpdf_contraction(xp: torch.Tensor, s2: torch.Tensor, alpha_g: torch.Tensor
     ``C = ½(α_g αᵀ − gsum·(T + Tᵀ − diag T))``, T = tril(K⁻¹) (lower
     triangle read; T may be a strided view): ``(s̄2, p̄, x̄′)``, the scalars
     as f64 0-dim tensors. x′ (n, D), α and α_g = α·ḡ (n, q), s2 and gsum
-    0-dim tensors. CUDA: one call of ``csrc/logpdf_contraction.cu``."""
+    0-dim tensors. CUDA: one call of ``csrc/logpdf_contraction.cu`` (z's
+    norms, the split sweep and the in-order sum of its partials)."""
     if not xp.is_cuda:
         buf = _params_buffer(params, xp.device, xp.dtype)
         return logpdf_contraction_plain(xp, s2, alpha_g, alpha, gsum, T, family, buf)
@@ -365,15 +372,17 @@ def logpdf_contraction(xp: torch.Tensor, s2: torch.Tensor, alpha_g: torch.Tensor
         T = T.contiguous()
     p0 = _params_buffer(params, xp.device)[:1]
     scal = torch.cat([p0, s2.reshape(1), gsum.reshape(1)])
+    splits = column_split_count(n, n)
     xbar = torch.empty((n, d), dtype=torch.float32, device=xp.device)
-    nblocks = -(-n // 64)
-    partial = torch.empty(2 * nblocks, dtype=torch.float64, device=xp.device)
+    znorm = torch.empty(n, dtype=torch.float32, device=xp.device)
+    part_x = torch.empty((splits, n, d), dtype=torch.float32, device=xp.device)
+    part_s = torch.empty(2 * -(-n // _TILE) * splits, dtype=torch.float64, device=xp.device)
     sums = torch.empty(2, dtype=torch.float64, device=xp.device)
     with torch.cuda.device(xp.device):
         err = cuda.library().agp_logpdf_contraction(
             xp.data_ptr(), alpha_g.data_ptr(), alpha.data_ptr(), T.data_ptr(), T.stride(0),
-            scal.data_ptr(), xbar.data_ptr(), partial.data_ptr(), sums.data_ptr(), n, d, q,
-            family, cuda.stream(xp))
+            scal.data_ptr(), xbar.data_ptr(), znorm.data_ptr(), part_x.data_ptr(),
+            part_s.data_ptr(), sums.data_ptr(), n, d, q, family, splits, cuda.stream(xp))
     cuda.check(err, "logpdf_contraction")
     cuda.LAUNCHES["logpdf_contraction"] += 1
     return sums[1], sums[0], xbar

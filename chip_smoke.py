@@ -7,14 +7,19 @@ Matern32Kernel(), ℓ))(x, 0.1).logpdf(y)``, then ``posterior(fx, y)
 the prediction with respect to σ², ℓ and the noise (caller tensors), and
 five Adam steps of ``fit(nlml(...))`` — at the full width of the exact-GP
 benchmark configuration (N = 8192, D = 8, M = 4096, f32) and at a ragged
-width (N = 4500: a 512-wide tail slab and a 36-block row-panel trtri).
+width (N = 4500: a 512-wide tail slab and a 36-block row-panel trtri);
+then a deep kernel, σ²·Matérn-3/2 ∘ ``FunctionTransform`` of an MLP whose
+weights are a list of ``{"w", "b"}`` dicts: ∇logpdf at N = 8192 with
+respect to every MLP tensor, and two ``fit`` steps.
 Checks values and gradients against f64 ``torch.linalg`` oracles on the
 card, holds each hand-written kernel against its plain torch version at
 the shapes the main path gives it (the backward kernels also bit for bit
-against a second call; ``chol_block``, which no path runs, on blocks the
+against a second call, kernel 5 also with NaN above T's diagonal;
+``chol_block``, which no path runs, on blocks the
 main path produced, its launches counted in its own phase and its line
 marked ``"path": null``), times the kernels with CUDA events (the block
-and backward kernels also in device time under ``torch.profiler``) and
+and backward kernels and the gram tile, at the prediction's shape and at
+one sweep panel, also in device time under ``torch.profiler``) and
 the end-to-end paths on the host clock (each call ends in a device-to-host
 read; the full width's four, the ragged width's prediction and
 gradient), and traces one logpdf, one prediction and the gradient of each
@@ -247,6 +252,122 @@ def check_grads(tag, got, want, kappa, budget=True):
     return ok
 
 
+# the deep kernel: σ²·(Matérn-3/2 ∘ ℓ) ∘ FunctionTransform(mlp), the MLP's
+# widths from the 8 input features to 2, its tree a list of {"w", "b"} dicts
+# (the layout of examples/deep_kernel_learning.py)
+MLP_SIZES = (8, 16, 16, 2)
+
+
+def mlp_apply(params, x):
+    """The deep kernel's feature map: tanh hidden layers, a linear output."""
+    import torch
+
+    h = x
+    for layer in params[:-1]:
+        h = torch.tanh(h @ layer["w"] + layer["b"])
+    return h @ params[-1]["w"] + params[-1]["b"]
+
+
+def make_mlp(seed: int, device, dtype):
+    """MLP weights drawn from ``seed`` (w scaled by √(2/fan-in), b small), as
+    tensors that require grad."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(a):
+        return torch.tensor(a, dtype=dtype, device=device, requires_grad=True)
+
+    return [{"w": leaf(rng.normal(size=(a, b)) * math.sqrt(2.0 / a)),
+             "b": leaf(0.1 * rng.normal(size=b))}
+            for a, b in zip(MLP_SIZES[:-1], MLP_SIZES[1:])]
+
+
+def mlp_leaves(mlp) -> list:
+    return [t for layer in mlp for t in (layer["w"], layer["b"])]
+
+
+def deep_kernel(s2, ell, mlp):
+    import abstractgps_tpu_torch as agt
+
+    return s2 * agt.compose(agt.with_lengthscale(agt.Matern32Kernel(), ell),
+                            agt.FunctionTransform(mlp, mlp_apply))
+
+
+def run_deep_grad(theta, mlp, x, y):
+    """∇logpdf of the deep kernel with respect to (σ², ℓ, noise) and every
+    MLP tensor, on the fused path. Returns the gradients (f64 on the host),
+    the kernel launches of the run, counted from 0, and whether the logpdf
+    required grad."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+
+    reset_launches()
+    lp = agt.GP(deep_kernel(theta[0], theta[1], mlp))(x, theta[2]).logpdf(y)
+    grads = torch.autograd.grad(lp, [*theta, *mlp_leaves(mlp)]) if lp.requires_grad else []
+    torch.cuda.synchronize()
+    return [g.double().cpu() for g in grads], read_launches(), lp.requires_grad
+
+
+def deep_grad_oracle_f64(s2, ell, mlp, x, y):
+    """Dense f64 reference on the card, written apart from the port: the
+    MLP's features, their f64 distances by differences, σ²·Matérn-3/2,
+    ``torch.linalg.cholesky`` and autograd of the logpdf with respect to
+    (σ², ℓ, noise) and every MLP tensor. Returns the gradients and κ(K)'s
+    bound λ_max / noise (λ_max by power iteration)."""
+    import torch
+
+    dev = x.device
+    th = [torch.tensor(v, dtype=torch.float64, device=dev, requires_grad=True)
+          for v in (s2, ell, NOISE)]
+    leaves = [t.detach().double().requires_grad_() for t in mlp_leaves(mlp)]
+    h = mlp_apply([{"w": w, "b": b} for w, b in zip(leaves[::2], leaves[1::2])],
+                  x.double()) / th[1]
+    n = h.shape[0]
+    r2 = sum((h[:, k, None] - h[None, :, k]) ** 2 for k in range(h.shape[1]))
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    t = math.sqrt(3.0) * torch.sqrt(torch.where(eye, 1.0, r2))  # no sqrt(0) on the diagonal
+    K = th[0] * torch.where(eye, 1.0, (1.0 + t) * torch.exp(-t)) + th[2] * eye.double()
+    del r2, t
+    L = torch.linalg.cholesky(K)
+    z = torch.linalg.solve_triangular(L, y.double()[:, None], upper=False)
+    out = -0.5 * (n * math.log(2 * math.pi) + 2 * torch.log(torch.diagonal(L)).sum()
+                  + (z * z).sum())
+    grads = [g.detach().cpu() for g in torch.autograd.grad(out, [*th, *leaves])]
+    with torch.no_grad():
+        Kd = K.detach()
+        v = torch.ones(n, dtype=torch.float64, device=dev)
+        for _ in range(50):
+            v = Kd @ v
+            v = v / v.norm()
+        kappa = float(v @ (Kd @ v)) * 1.01 / NOISE
+    return grads, kappa
+
+
+def check_deep_grads(tag, got, want, kappa):
+    """Each leaf's f32 gradient against f64 in norm, relative to the leaf's
+    norm, at 10·κ·eps as ``check_grads`` holds the others. The output bias's
+    exact gradient is 0 (the kernel is stationary: one shift of every
+    feature changes no distance), so its error is taken relative to the
+    output weight's gradient."""
+    import torch
+
+    tol = 10.0 * kappa * EPS32
+    names = ["s2", "ell", "noise"] + [f"{p}{i}" for i in range(len(MLP_SIZES) - 1)
+                                      for p in ("w", "b")]
+    rel = {}
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        scale = want[i - 1] if i == len(names) - 1 else w
+        rel[name] = float((g - w).norm() / scale.norm())
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    ok = finite and len(got) == len(names) and max(rel.values()) <= tol
+    print(f"[{tag}] relative errors by leaf {json.dumps(rel)}; tol {tol:.3e}; finite {finite}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
 def check_against_oracle(tag, lp, mu, var, ref):
     """f32 path vs f64 oracle. Tolerance: first-order rounding of an f32
     factorization and solve moves each result by ≲ κ(K)·eps relative; we
@@ -402,8 +523,28 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     err = float((got - want).abs().max())
     ms = cuda_ms(lambda: fused_gram.gram_tile(xt, xst, fam, params), 20)
     plain = cuda_ms(lambda: fused_gram.gram_tile_plain(xt, xst, fam, pbuf), 5)
-    record("gram_tile", err, 3e-5, ms, plain, None,
-           4.0 * (n * d + m * d + n * m), n * m * (3.0 * d + 12.0), [n, m, d])
+
+    def gram_work(rows, cols):  # bytes (x, z read, K written once), operations
+        return 4.0 * ((rows + cols) * d + rows * cols), rows * cols * (3.0 * d + 12.0)
+
+    record("gram_tile", err, 3e-5, ms, plain, None, *gram_work(n, m), [n, m, d])
+    del got, want
+    r = recs["gram_tile"]
+    r["device_ms"] = device_ms(lambda: fused_gram.gram_tile(xt, xst, fam, params))
+    # one sweep panel of the logpdf: K(x[r0:], x[r0:r0 + 1024]) at r0 = 0
+    w = blocked_chol._OUTER
+    xw = xt[:w]
+    got = fused_gram.gram_tile(xt, xw, fam, params)
+    r["panel_max_abs_err"] = float((got - fused_gram.gram_tile_plain(xt, xw, fam, pbuf))
+                                   .abs().max())
+    r["panel_device_ms"] = device_ms(lambda: fused_gram.gram_tile(xt, xw, fam, params))
+    r["panel_bound_ms"] = bound_ms(*gram_work(n, w))[0]
+    r["panel_shape"] = [n, w, d]
+    r["ok"] = r["ok"] and r["panel_max_abs_err"] <= 3e-5
+    print(f"[kernel gram_tile] device time per call {_ms(r['device_ms'])} ms at {[n, m, d]}; "
+          f"sweep panel {[n, w, d]}: max_abs_err {r['panel_max_abs_err']:.3e} (tol 3e-5), "
+          f"device time per call {_ms(r['panel_device_ms'])} ms, bound "
+          f"{r['panel_bound_ms']:.4f} ms", flush=True)
 
     # slab_factor on the first slab of the full-width sweep; κ(S) ≤ ‖S‖/σ²
     # (the noise bounds λ_min from below)
@@ -575,6 +716,16 @@ def backward_kernel_checks(contr_in, bwd_in):
     n, d = xp.shape
     q = a.shape[1]
     got, same = repeat(lambda: fused_gram.logpdf_contraction(*contr_in), "logpdf_contraction")
+    # T's strict upper triangle is never read: NaN there changes no bit
+    upper = torch.ones((n, n), dtype=torch.bool, device=T.device).triu_(1)
+    got_nan = fused_gram.logpdf_contraction(xp, s2, ag, a, gsum, T.masked_fill(upper, math.nan),
+                                            fam, params)
+    del upper
+    nan_ok = all(bool(torch.isfinite(t).all()) and torch.equal(t, u)
+                 for t, u in zip(got_nan, got))
+    print(f"[kernel logpdf_contraction] NaN above T's diagonal: finite and identical bits "
+          f"{nan_ok}", flush=True)
+    same = same and nan_ok
     pbuf = fused_gram._params_buffer(params, xp.device)
     want = fused_gram.logpdf_contraction_plain(xp, s2, ag, a, gsum, T, fam, pbuf)
     Tl = torch.tril(T)
@@ -691,7 +842,11 @@ def profile_breakdown(name: str, fn, top: int = 10) -> None:
     print(f"[profile {name}] window {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"({busy / wall_us:.3f} of the window), {len(kernels)} kernel launches",
           flush=True)
-    for kname, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the top entries, then the port's own kernels further down
+    shown = ranked[:top] + [kv for kv in ranked[top:] if any(
+        s in kv[0] for s in ("agp::", "gram_tile_kernel", "split_sweep", "anonymous namespace"))]
+    for kname, (t, n) in shown:
         print(f"[profile {name}]   {t / 1e3:9.3f} ms {t / device_us:6.3f} x{n:<5d} "
               f"{kname[:90]}", flush=True)
 
@@ -770,10 +925,32 @@ def main(argv=None) -> int:
     print(f"[fit] 5 Adam steps at N={N}: loss history {hist.tolist()}; "
           f"{'ok' if fit_ok else 'FAIL'}", flush=True)
 
+    # ---- the deep kernel: ∇logpdf through its MLP on the fused path, then two
+    # Adam steps of MLE-II over the MLP's tree and (σ², ℓ, noise) -----------
+    mlp = make_mlp(args.seed + 2, dev, f32)
+    g_deep, counts_deep, deep_rg = run_deep_grad(theta, mlp, x, y)
+    print(f"[deep] logpdf requires grad: {deep_rg}; launches {json.dumps(counts_deep)}",
+          flush=True)
+
+    def build_deep(t, xx):
+        return agt.GP(deep_kernel(t["s2"], t["ell"], t["mlp"]))(xx, t["noise"])
+
+    theta_deep = dict(theta0, mlp=make_mlp(args.seed + 2, dev, f32))
+    reset_launches()
+    deep_res = agt.fit(agt.nlml(build_deep, x, y), theta_deep, num_steps=2)
+    hist_deep = deep_res.history.double().cpu()
+    counts_deep_fit = read_launches()
+    moved = all(not torch.equal(a[k], b[k]) for a, b in zip(deep_res.params["mlp"],
+                                                            theta_deep["mlp"]) for k in "wb")
+    deep_fit_ok = bool(torch.isfinite(hist_deep).all()) and moved
+    print(f"[deep fit] 2 Adam steps at N={N}: loss history {hist_deep.tolist()}; every MLP "
+          f"tensor moved: {moved}; {'ok' if deep_fit_ok else 'FAIL'}", flush=True)
+
     runs = {"logpdf full": full_counts["logpdf"], "pred full": full_counts["pred"],
             "logpdf ragged": ragged_counts["logpdf"], "pred ragged": ragged_counts["pred"],
             "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
-            "fit full": counts_fit}
+            "fit full": counts_fit, "deep grad full": counts_deep,
+            "deep fit full": counts_deep_fit}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -783,7 +960,11 @@ def main(argv=None) -> int:
             "grad full": ("gram_tile", "slab_factor", "tri_inv_block", "logpdf_contraction"),
             "grad ragged": ("chol_inv_block", "tri_inv_block", "logpdf_contraction"),
             "pred grad full": ("gram_tile", "slab_factor", "tri_inv_block", "gram_bwd"),
-            "fit full": ("slab_factor", "tri_inv_block", "logpdf_contraction")}
+            "fit full": ("slab_factor", "tri_inv_block", "logpdf_contraction"),
+            "deep grad full": ("gram_tile", "slab_factor", "tri_inv_block",
+                               "logpdf_contraction"),
+            "deep fit full": ("gram_tile", "slab_factor", "tri_inv_block",
+                              "logpdf_contraction")}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
     missing = {r: ks for r, ks in missing.items() if ks}
     if missing or set(bwd_in.calls) != {"sym", "plain", "transpose"} or not contr_in.calls:
@@ -804,7 +985,11 @@ def main(argv=None) -> int:
     ok_gp = check_grads(f"pred grad full N={N} M={M}", g_pred,
                         grad_oracle_f64(s2, ell, x, y, xs), ref_full[3], budget=False)
     torch.cuda.empty_cache()
-    ok = ok and ok_f and ok_r and shapes_ok and ok_g and ok_gr and ok_gp and fit_ok
+    ok_deep = deep_rg and check_deep_grads(f"deep grad full N={N}", g_deep,
+                                           *deep_grad_oracle_f64(s2, ell, mlp, x, y))
+    torch.cuda.empty_cache()
+    ok = (ok and ok_f and ok_r and shapes_ok and ok_g and ok_gr and ok_gp and fit_ok
+          and ok_deep and deep_fit_ok)
 
     # ---- each kernel against its plain version; times ---------------------
     with torch.no_grad():
@@ -892,7 +1077,9 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r.get("device_ms"),
             "library_device_ms": r.get("library_device_ms"),
-            **{k: r[k] for k in ("one_block_device_ms", "one_block_library_device_ms")
+            **{k: r[k] for k in ("one_block_device_ms", "one_block_library_device_ms",
+                                 "panel_shape", "panel_max_abs_err", "panel_device_ms",
+                                 "panel_bound_ms")
                if k in r},
             **({"modes": {m_: {k: v for k, v in mr.items() if k not in ("ok", "tol")}
                           for m_, mr in r["modes"].items()}} if "modes" in r else {}),

@@ -90,6 +90,43 @@ def test_gram_tile_matches_plain(cuda, gen, family):
             assert torch.equal(torch.diagonal(got), torch.diagonal(want))
 
 
+@pytest.mark.parametrize("d", [1, 3, 8, 32, 40, 70])
+@pytest.mark.parametrize("family", sorted(fused_gram.FAMILIES))
+def test_gram_tile_widths_edges_and_alignment(cuda, gen, family, d):
+    # D: each register width of the kernel (8, 16, 32 features) with features
+    # past D zero, and the wide path past 32; m = 1, 63, 4097 leave rows that
+    # are not 16-byte aligned (scalar stores); a row operand that starts 4
+    # bytes into its buffer takes the 4-byte copies; symmetric on and off.
+    # Tolerance, entry by entry: d² sums D products and two norms in another
+    # order than the plain version, ≲ (2D + 4)·eps·(‖x‖² + ‖z‖²), times
+    # |∂g/∂d²|, plus the 3e-5 of the other gram_tile tests for the map's
+    # own rounding (expf, powf, cosf against torch's)
+    n = 200
+    x = torch.as_tensor(gen.uniform(size=(n, d)), dtype=torch.float32, device=cuda)
+    params = (torch.tensor(1.3, device=cuda),) if family in (4, 5) else ()
+    pbuf = fused_gram._params_buffer(params, cuda)
+    x_odd = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    x_odd.copy_(x)
+
+    def check(xx, zz, symmetric):
+        got = _launched("gram_tile",
+                        lambda: fused_gram.gram_tile(xx, zz, family, params, symmetric))
+        d2 = fused_gram._sqdist_plain(xx, zz, symmetric)
+        want, dg, _ = fused_gram._map_vjp(family, d2, pbuf)
+        norms = (xx * xx).sum(1)[:, None] + (zz * zz).sum(1)[None, :]
+        tol = 3e-5 + dg.abs() * (2 * d + 4) * EPS32 * norms
+        assert got.shape == want.shape and torch.all((got - want).abs() <= tol)
+        return got
+
+    for m in (1, 63, 4097):
+        z = torch.as_tensor(gen.uniform(size=(m, d)), dtype=torch.float32, device=cuda)
+        got = check(x, z, False)
+        torch.testing.assert_close(check(x_odd, z, False), got, rtol=0, atol=0)
+    K = check(x, x, True)
+    assert torch.equal(K, K.T) and torch.all(torch.diagonal(K) == fused_gram._apply_map(
+        family, torch.zeros(1, device=cuda), pbuf))
+
+
 @pytest.mark.parametrize("B", [128, 48])
 def test_chol_inv_block_matches_plain(cuda, gen, B):
     A = _spd(gen, B, cuda)
@@ -391,6 +428,55 @@ def test_logpdf_contraction_matches_plain(cuda, gen, family):
         assert float((g_ - w_).abs().max()) <= 1e-4 * scale
     again = fused_gram.logpdf_contraction(x, s2, a * gbar, a, gsum, T, family, params)
     assert all(torch.equal(g_, a_) for g_, a_ in zip(got, again))
+
+
+# (n, D, q): n over a single tile, a ragged tile, and split grids (S = 16 at
+# 1024, 7 at 4500); D over each register width and the wide path; q = 1 (the
+# main path), 3 (staged as four columns) and 6 (read per entry)
+_CONTRACTION_CASES = [(64, 1, 1), (100, 8, 3), (1024, 12, 6), (4500, 40, 1), (4500, 8, 3),
+                      (1024, 1, 6)]
+
+
+@pytest.mark.parametrize("n,d,q", _CONTRACTION_CASES)
+@pytest.mark.parametrize("family", sorted(fused_gram.FAMILIES))
+def test_logpdf_contraction_split_sweep(cuda, gen, family, n, d, q):
+    x = torch.as_tensor(gen.uniform(size=(n, d)), dtype=torch.float32, device=cuda)
+    # T: a lower triangle in a strided view (row stride n + 16) that holds NaN
+    # above the diagonal and in the padding, as the backward's padded T may
+    # hold anything there
+    buf = torch.full((n, n + 16), math.nan, device=cuda)
+    buf[:, :n] = torch.as_tensor(np.tril(gen.normal(size=(n, n)) / math.sqrt(n)),
+                                 dtype=torch.float32, device=cuda)
+    buf[:, :n] += torch.triu(torch.full((n, n), math.nan, device=cuda), 1)
+    T = buf[:, :n]
+    a = torch.as_tensor(gen.normal(size=(n, q)), dtype=torch.float32, device=cuda)
+    gbar = torch.as_tensor(gen.normal(size=q), dtype=torch.float32, device=cuda)
+    s2, gsum = torch.tensor(1.3, device=cuda), gbar.sum()
+    params = _params(family, cuda)
+    pbuf = fused_gram._params_buffer(params, cuda)
+    args = (x, s2, a * gbar, a, gsum)
+    got = _launched("logpdf_contraction",
+                    lambda: fused_gram.logpdf_contraction(*args, T, family, params))
+    want = fused_gram.logpdf_contraction_plain(*args, T, family, pbuf)
+    assert all(torch.isfinite(t).all() for t in got)
+    # as chip_smoke.py holds it: the scalars within 1e-4 relative; x̄ sums n
+    # f32 terms in another order, within 2·√n·eps of the sum of the terms'
+    # magnitudes, entry by entry
+    for g_, w_ in zip(got[:2], want[:2]):
+        assert abs(float(g_) - float(w_)) <= 1e-4 * abs(float(w_))
+    Tl = torch.tril(T)
+    with precision.full_f32():
+        C = 0.5 * (a * gbar) @ a.T - 0.5 * gsum * (Tl + Tl.T - torch.diag(torch.diagonal(Tl)))
+    _, dg, _ = fused_gram._map_vjp(family, fused_gram._sqdist_plain(x, x, True), pbuf)
+    w = (C * s2 * dg).abs()
+    with precision.full_f32():
+        mag = 4.0 * (w.sum(1, keepdim=True) * x.abs() + w @ x.abs())
+    assert torch.all((got[2] - want[2]).abs() <= 2.0 * math.sqrt(n) * EPS32 * mag)
+    again = fused_gram.logpdf_contraction(*args, T, family, params)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    # the same T without the NaN, contiguous: the same bits
+    clean = fused_gram.logpdf_contraction(*args, torch.tril(T).contiguous(), family, params)
+    assert all(torch.equal(u, v) for u, v in zip(got, clean))
 
 
 def test_grad_on_the_card_matches_f64(cuda, gen):

@@ -131,14 +131,26 @@ def test_fused_gram_vjp_matches_pallas(rng, small_tiles, family, make, leaf, sym
 
 @pytest.mark.parametrize("family,make,leaf", BWD_FAMILIES, ids=BWD_IDS)
 def test_logpdf_contraction_plain_matches_pallas(rng, small_tiles, family, make, leaf):
-    n, d, q = 150, 3, 2
+    _contraction_against_pallas(rng, family, make, leaf, np.asarray([0.7, -1.3], np.float32))
+
+
+@pytest.mark.parametrize("q", [1, 3])
+@pytest.mark.parametrize("family,make,leaf", BWD_FAMILIES, ids=BWD_IDS)
+def test_logpdf_contraction_plain_matches_pallas_rank_q(rng, small_tiles, family, make, leaf,
+                                                        q):
+    # δ of shape (n, q): the main path's q = 1, and a general rank
+    g = np.asarray([0.7, -1.3, 0.4], np.float32)[:q]
+    _contraction_against_pallas(rng, family, make, leaf, g)
+
+
+def _contraction_against_pallas(rng, family, make, leaf, g):
+    n, d, q = 150, 3, g.shape[0]
     xp = rng.uniform(size=(n, d)).astype(np.float32)
     K = spd(rng, n)
     T = np.tril(np.linalg.inv(K)).astype(np.float32)
     # the upper triangle is never read: fill it with garbage on the port side
     T_dirty = T + np.triu(rng.normal(size=(n, n)) * 1e3, 1).astype(np.float32)
     alpha = rng.normal(size=(n, q)).astype(np.float32)
-    g = np.asarray([0.7, -1.3], np.float32)
     ag = alpha * g[None, :]
     s2, gsum = np.float32(1.3), np.float32(g.sum())
     kj = make()
@@ -153,6 +165,23 @@ def test_logpdf_contraction_plain_matches_pallas(rng, small_tiles, family, make,
     _close_scaled(float(s2bar), float(s2bar_j), "s2bar")
     if leaf is not None:
         _close_scaled(float(pbar), float(getattr(kb_j, leaf)), leaf)
+
+
+def test_logpdf_contraction_plain_ignores_the_upper_triangle(rng):
+    # T is a view of a padded tril(K⁻¹) whose strict upper triangle may hold
+    # anything: NaN there gives the same result, to the bit
+    n, d, q = 90, 3, 2
+    xp = torch.as_tensor(rng.uniform(size=(n, d)), dtype=torch.float32)
+    T = torch.tril(torch.as_tensor(np.linalg.inv(spd(rng, n)), dtype=torch.float32))
+    T_nan = T + torch.triu(torch.full((n, n), float("nan")), 1)
+    a = torch.as_tensor(rng.normal(size=(n, q)), dtype=torch.float32)
+    g = torch.tensor([0.7, -1.3])
+    args = (xp, torch.tensor(1.3), a * g, a, g.sum())
+    params = (torch.tensor(1.7),)
+    clean = fused_gram.logpdf_contraction(*args, T, 4, params)
+    dirty = fused_gram.logpdf_contraction(*args, T_nan, 4, params)
+    assert all(torch.isfinite(t).all() for t in dirty)
+    assert all(torch.equal(u, v) for u, v in zip(clean, dirty))
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +437,8 @@ def test_caller_hyperparameter_grads_match_jax_f64(rng):
 @pytest.fixture(scope="module")
 def jax_fused_grads():
     """jax.grad of logpdf and of the prediction through the JAX fused path
-    (interpret mode, f32) with respect to σ², ℓ, the noise, x and y."""
+    (interpret mode, f32) with respect to σ², ℓ, the noise, x and y, and
+    the prediction's f64 gradient."""
     rng = np.random.default_rng(17)
     x = rng.uniform(size=(150, 2)).astype(np.float32)
     y = rng.normal(size=150).astype(np.float32)
@@ -418,20 +448,23 @@ def jax_fused_grads():
             k = s2 * agp.with_lengthscale(agp.Matern32Kernel(), ell)
             return agp.GP(k)(xx, noise).logpdf(yy)
 
-        def pred(s2, ell, noise):
+        def pred(s2, ell, noise, dtype=jnp.float32):
             k = s2 * agp.with_lengthscale(agp.Matern32Kernel(), ell)
-            post = agp.posterior(agp.GP(k)(jnp.asarray(x), noise), jnp.asarray(y))
-            mu, var = post.mean_and_var(jnp.asarray(xs))
+            post = agp.posterior(agp.GP(k)(jnp.asarray(x, dtype), noise),
+                                 jnp.asarray(y, dtype))
+            mu, var = post.mean_and_var(jnp.asarray(xs, dtype))
             return jnp.sum(mu) + jnp.sum(var)
 
         th = (jnp.float32(1.1), jnp.float32(0.4), jnp.float32(0.1))
         g_lp = jax.grad(lp, argnums=(0, 1, 2, 3, 4))(*th, jnp.asarray(x), jnp.asarray(y))
         g_pred = jax.grad(pred, argnums=(0, 1, 2))(*th)
-    return (x, y, xs), g_lp, g_pred
+    # the f64 truth of the prediction's gradient (the dense path)
+    g_pred64 = jax.grad(pred, argnums=(0, 1, 2))(1.1, 0.4, 0.1, jnp.float64)
+    return (x, y, xs), g_lp, g_pred, g_pred64
 
 
 def test_caller_hyperparameter_grads_match_jax_fused(jax_fused_grads):
-    (x, y, _), g_j, _ = jax_fused_grads
+    (x, y, _), g_j, *_ = jax_fused_grads
     with small_kernel_paths():
         th = [torch.tensor(v, requires_grad=True) for v in (1.1, 0.4, 0.1)]
         xt, yt = _t(x).requires_grad_(), _t(y).requires_grad_()
@@ -447,7 +480,7 @@ def test_caller_hyperparameter_grads_match_jax_fused(jax_fused_grads):
 def test_prediction_grads_match_jax_fused(jax_fused_grads):
     # ∇ of mean.sum() + var.sum(): cholesky_gram's backward (the symmetric
     # gram VJP), the cross gram's two passes, and the wide-solve adjoints
-    (x, y, xs), _, g_j = jax_fused_grads
+    (x, y, xs), _, g_j, g64 = jax_fused_grads
     calls = []
     with small_kernel_paths() as mp:
         orig = fused_gram.gram_bwd
@@ -459,6 +492,12 @@ def test_prediction_grads_match_jax_fused(jax_fused_grads):
         got = torch.autograd.grad(mu.sum() + var.sum(), th)
     assert set(calls) == {"sym", "plain", "transpose"}
     # κ(K) ≈ 1.6e3 here: each package's f32 gradient is ~κ·eps·(chain
-    # length) off the f64 truth (measured ≲ 8e-4 relative for either), so
-    # the two agree to 2e-3
-    np.testing.assert_allclose([float(g) for g in got], [float(g) for g in g_j], rtol=2e-3)
+    # length) off the f64 truth (measured: the JAX package's up to 1.7e-3
+    # relative, the port's, with the pullback by substitution as the JAX
+    # package's, up to 3.0e-4). The port is held at 2e-3 of the truth, and
+    # to the JAX package through it: no component further from the truth
+    # than twice the JAX package's own f32 gradient
+    got = np.asarray([float(g) for g in got])
+    want, g_j = np.asarray(g64, np.float64), np.asarray(g_j, np.float64)
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+    assert np.all(np.abs(got - want) <= 2.0 * np.abs(g_j - want)), (got, g_j, want)

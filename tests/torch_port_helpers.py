@@ -56,6 +56,40 @@ def spd(rng, n):
     return X @ X.T / (n + 8) + 0.5 * np.eye(n)
 
 
+def mlp_weights(rng, sizes=(1, 16, 16, 2)):
+    """numpy weights of a tanh MLP, ``[(w, b), ...]`` (w scaled by
+    √(2/fan-in), as ``examples/deep_kernel_learning.py:mlp_init``; b small
+    and nonzero, so its gradient is exercised)."""
+    return [(rng.normal(size=(kin, kout)) * np.sqrt(2.0 / kin), 0.1 * rng.normal(size=kout))
+            for kin, kout in zip(sizes[:-1], sizes[1:])]
+
+
+def mlp_trees(weights, dtype=np.float32):
+    """The same MLP weights as a JAX parameter tree and as a torch one: each a
+    list of ``{"w", "b"}`` dicts, the deep-kernel example's layout. The torch
+    leaves require grad."""
+    import jax.numpy as jnp
+
+    jax_tree = [{"w": jnp.asarray(w.astype(dtype)), "b": jnp.asarray(b.astype(dtype))}
+                for w, b in weights]
+    torch_tree = [{"w": torch.as_tensor(w.astype(dtype)).requires_grad_(),
+                   "b": torch.as_tensor(b.astype(dtype)).requires_grad_()}
+                  for w, b in weights]
+    return jax_tree, torch_tree
+
+
+def mlp_apply(params, x):
+    """The deep-kernel example's feature map (tanh hidden layers, linear
+    output); works on JAX and torch arrays alike."""
+    import jax.numpy as jnp
+
+    tanh = torch.tanh if isinstance(x, torch.Tensor) else jnp.tanh
+    h = x
+    for layer in params[:-1]:
+        h = tanh(h @ layer["w"] + layer["b"])
+    return h @ params[-1]["w"] + params[-1]["b"]
+
+
 def param_tree(tree):
     """Nested description of a tagged JAX parameter tree (``Positive.raw``,
     ``Bounded.raw/lo/hi``, ``Fixed.val``, plain arrays) for
