@@ -3,7 +3,9 @@
 Exact GP regression on an NVIDIA H100 (reference surface: AbstractGPs.jl):
 GP priors, FiniteGP projections, the log marginal likelihood, and exact
 posteriors with sequential conditioning, their gradients, and MLE-II
-fitting over tagged parameter trees (``params``, ``fit``, ``fit_lbfgs``).
+fitting over tagged parameter trees (``params``, ``fit``, ``fit_lbfgs``);
+LatentGPs under the likelihoods of ``distributions``, and the NUTS, HMC,
+elliptical-slice and SMC samplers of ``inference.mcmc``.
 Kernels and means are ``nn.Module``s; models and ops are plain functions
 on tensors. At size on the card (f32) the hot path runs hand-written CUDA
 kernels (``csrc/``): the fused gram tile, the slab and block Cholesky
@@ -15,7 +17,7 @@ Tensors keep their device; other inputs go to the default device
 ``abstractgps_tpu`` is the frozen reference this port is tested against.
 """
 
-from . import inference, kernels, ops, params  # noqa: F401
+from . import distributions, inference, kernels, ops, params  # noqa: F401
 from .convert import kernel_from_numpy, mean_from_numpy, noise_from_numpy, params_from_numpy
 from .inference import FitResult, fit, fit_lbfgs, nlml
 from .kernels import *  # noqa: F401,F403 — kernel zoo re-export
@@ -42,6 +44,7 @@ from .models.finite_gp import (
     sqmahal,
 )
 from .models.gp import AbstractGP, GP, cov, mean, mean_and_cov, mean_and_var, var
+from .models.latent_gp import LatentFiniteGP, LatentGP
 from .ops.distance import (
     as_inputs,
     col_vecs,

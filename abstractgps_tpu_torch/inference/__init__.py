@@ -1,6 +1,16 @@
-"""Inference engines: the MLE-II training loops (``training``)."""
+"""Inference engines: the MLE-II training loops (``training``) and the
+MCMC samplers (``mcmc``)."""
 
-from . import training
+from . import mcmc, training
+from .mcmc import (
+    MCMCResult,
+    SMCResult,
+    init_chain_positions,
+    run_ess,
+    run_mcmc,
+    run_smc,
+)
 from .training import FitResult, fit, fit_lbfgs, nlml
 
-__all__ = ["fit", "fit_lbfgs", "nlml", "FitResult", "training"]
+__all__ = ["fit", "fit_lbfgs", "nlml", "FitResult", "training", "mcmc", "run_mcmc",
+           "MCMCResult", "init_chain_positions", "run_ess", "run_smc", "SMCResult"]

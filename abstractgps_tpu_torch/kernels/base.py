@@ -19,13 +19,15 @@ matching ``kernelmatrix(k, x, z)``, ``kernelmatrix(k, x)`` and
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
 from ..means import as_param
 from ..ops.distance import as_inputs, as_tensor
 from ..ops.precision import precise
-from ..params import leaves
+from ..params import leaves, with_leaves
 
 __all__ = [
     "Kernel",
@@ -247,6 +249,45 @@ def hyperparameters(module: nn.Module) -> list:
                 seen.add(id(t))
                 out.append(t)
     return out
+
+
+@contextlib.contextmanager
+def leaf_hyperparameters(module: nn.Module):
+    """Within the block, every hyperparameter tensor of the module tree that
+    is not a leaf of the autograd graph (a caller's tensor computed from
+    others, such as the rows of ``torch.exp(q)``) is replaced by a leaf
+    alias: the same values, detached, requiring grad. A backward rule that
+    differentiates the kernel again then stops at the alias, where it would
+    otherwise run on into the caller's graph, whose buffers the outer
+    backward still needs. Yields ``{id(original): alias}``."""
+    alias, swaps = {}, []
+
+    def sub(t):
+        if isinstance(t, torch.Tensor) and t.requires_grad and t.grad_fn is not None:
+            if id(t) not in alias:
+                alias[id(t)] = t.detach().requires_grad_()
+            return alias[id(t)]
+        return t
+
+    for m in module.modules():
+        for name, v in list(vars(m).items()):
+            if isinstance(v, torch.Tensor):
+                new = sub(v)
+            elif isinstance(v, (list, tuple, dict)) and not name.startswith("_"):
+                old = leaves(v)
+                subbed = [sub(t) for t in old]
+                # rebuild a container only where one of its leaves was aliased
+                new = v if all(a is b for a, b in zip(old, subbed)) else with_leaves(v, subbed)
+            else:
+                continue
+            if new is not v:
+                swaps.append((m, name, v))
+                m.__dict__[name] = new
+    try:
+        yield alias
+    finally:
+        for m, name, v in reversed(swaps):
+            m.__dict__[name] = v
 
 
 def compose(kernel: Kernel, transform) -> TransformedKernel:

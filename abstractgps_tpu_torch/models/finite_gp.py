@@ -176,6 +176,15 @@ class FiniteGP:
         """(f, x, Σy)."""
         return self.f, self.x, self.noise
 
+    @precise
+    def to_mvnormal(self):
+        """Decouple into a plain ``MvNormal(m, L)`` distribution — the
+        reference's ``convert(MvNormal, fx)``."""
+        from ..distributions import MvNormal
+
+        m, L = self._chol()
+        return MvNormal(m, L)
+
     def posterior(self, y):
         from .exact_posterior import posterior
 

@@ -14,9 +14,10 @@ triangular inverse whose diagonal blocks come from ``tri_inv_block``.
 
 The four hand-written kernels of this module (``csrc/``) each have a plain
 torch version beside them: a CUDA tensor launches the kernel, a CPU tensor
-takes the plain version. The panel GEMMs, doubling merges and TRMMs are
-large products outside any kernel, left to ``torch.matmul`` at IEEE f32
-(never TF32), as the JAX package left them to XLA.
+takes the plain version. ``set_enabled(False)`` closes the gates, so every
+tensor takes the library path instead. The panel GEMMs, doubling merges
+and TRMMs are large products outside any kernel, left to ``torch.matmul``
+at IEEE f32 (never TF32), as the JAX package left them to XLA.
 
 Source notes (TPU kernel → this port, bound on the H100, design):
 
@@ -79,6 +80,7 @@ from . import cuda
 from .precision import full_f32
 
 _INTERPRET = False  # tests: route CPU f32 tensors through the plain versions
+_ENABLED = True     # False: every tensor takes the library path (torch.linalg)
 _MIN_N = 1024       # below this torch.linalg is already fine
 _BLOCK = 128        # diagonal block width
 _OUTER = 1024       # outer slab width of the two-level sweep
@@ -86,13 +88,23 @@ _SLAB = True        # full-width slabs go through slab_factor
 _WIDE_RHS = 256     # the trtri amortizes over this many RHS columns
 _TRMM_SPLIT = 2048  # split dense x triangular products at/above this size
 
+
+def set_enabled(flag: bool) -> None:
+    """``False`` turns this module's kernel paths off: the gates below
+    return False, so a card tensor takes the library path (``torch.linalg``
+    and cuBLAS), as a CPU f64 tensor does. The choice is made before any
+    kernel is tried; it is no fallback."""
+    global _ENABLED
+    _ENABLED = flag
+
+
 def set_interpret(flag: bool) -> None:
     global _INTERPRET
     _INTERPRET = flag
 
 
 def _on_kernel_path(t: torch.Tensor) -> bool:
-    return _INTERPRET or t.is_cuda
+    return _ENABLED and (_INTERPRET or t.is_cuda)
 
 
 def should_use_pallas(A: torch.Tensor) -> bool:
@@ -500,13 +512,16 @@ def _param_grads(params, bars: dict):
 
 def _gram_vjp(kernel, x, params, Kbar):
     """(x̄, {id(param): bar}) of ⟨K̄, kernel.gram(x)⟩ by autograd through the
-    kernel's own gram (the gram VJP kernel at size)."""
-    with torch.enable_grad():
+    kernel's own gram (the gram VJP kernel at size), stopping at the
+    hyperparameters (``leaf_hyperparameters``)."""
+    from ..kernels.base import leaf_hyperparameters
+
+    with torch.enable_grad(), leaf_hyperparameters(kernel) as alias:
         x_ = x.detach().requires_grad_()
         K = kernel.gram(x_)
         wrt = [p for p in params if p.requires_grad]
-        grads = torch.autograd.grad(K, [x_, *wrt], grad_outputs=Kbar.to(K.dtype),
-                                    allow_unused=True)
+        grads = torch.autograd.grad(K, [x_, *[alias.get(id(p), p) for p in wrt]],
+                                    grad_outputs=Kbar.to(K.dtype), allow_unused=True)
     return grads[0], {id(p): g for p, g in zip(wrt, grads[1:]) if g is not None}
 
 
@@ -614,7 +629,7 @@ def _try_fused_contraction(kernel, x, alpha, g, T, gsum, params):
     or None (the generic autograd fallback: sums, products, periodic, ...).
     The peel itself is differentiated by autograd, with the kernel's bars
     as ``grad_outputs``, so any transform stack keeps exact cotangents."""
-    from ..kernels.base import ScaledKernel, TransformedKernel
+    from ..kernels.base import ScaledKernel, TransformedKernel, leaf_hyperparameters
     from ..kernels.stationary import IsotropicKernel
     from . import fused_gram
     from .distance import as_inputs
@@ -624,12 +639,13 @@ def _try_fused_contraction(kernel, x, alpha, g, T, gsum, params):
         base = base.kernel
     if not isinstance(base, IsotropicKernel):
         return None
-    if not (fused_gram._INTERPRET or T.is_cuda):
+    if not fused_gram._on_kernel_path(T):
         return None
     if T.dtype != torch.float32 or T.shape[0] < _MIN_N:
         return None
 
-    with torch.enable_grad():
+    map_params = base._map_params()
+    with torch.enable_grad(), leaf_hyperparameters(kernel) as alias:
         x_ = x.detach().requires_grad_()
         s2 = torch.ones((), dtype=torch.float32, device=x.device)
         k, xp = kernel, as_inputs(x_)
@@ -647,9 +663,10 @@ def _try_fused_contraction(kernel, x, alpha, g, T, gsum, params):
             outs.append(s2)
             couts.append(s2bar.to(s2.dtype).reshape(s2.shape))
         wrt = [p for p in params if p.requires_grad]
-        grads = torch.autograd.grad(outs, [x_, *wrt], grad_outputs=couts, allow_unused=True)
+        grads = torch.autograd.grad(outs, [x_, *[alias.get(id(p), p) for p in wrt]],
+                                    grad_outputs=couts, allow_unused=True)
     bars = {id(p): gr for p, gr in zip(wrt, grads[1:]) if gr is not None}
-    for p in base._map_params():  # the base map's hyperparameter takes p̄ directly
+    for p in map_params:  # the base map's hyperparameter takes p̄ directly
         bars[id(p)] = pbar
     ndbar = 0.5 * (torch.sum(alpha * alpha * g[None, :], dim=1) - gsum * torch.diagonal(T))
     return grads[0], bars, ndbar

@@ -62,6 +62,7 @@ from .precision import full_f32
 
 __all__ = [
     "FAMILIES",
+    "set_enabled",
     "set_interpret",
     "should_use_kernel",
     "gram_tile",
@@ -76,6 +77,7 @@ __all__ = [
 ]
 
 _INTERPRET = False  # tests: route CPU f32 tensors through the plain version
+_ENABLED = True     # False: every tensor takes the unfused torch formulation
 _MIN_SIZE = 512 * 512  # below this the plain torch path is already fine
 
 # epilogue ids of csrc/gram_tile.cu, by kernel class FAMILY
@@ -90,15 +92,28 @@ FAMILIES = {
 }
 
 
+def set_enabled(flag: bool) -> None:
+    """``False`` turns the fused gram and its backward kernels off: the gate
+    returns False, so a card tensor takes the unfused torch formulation (the
+    library path, as a CPU f64 tensor does). The choice is made before any
+    kernel is tried; it is no fallback."""
+    global _ENABLED
+    _ENABLED = flag
+
+
 def set_interpret(flag: bool) -> None:
     global _INTERPRET
     _INTERPRET = flag
 
 
+def _on_kernel_path(*ts: torch.Tensor) -> bool:
+    return _ENABLED and (_INTERPRET or all(t.is_cuda for t in ts))
+
+
 def should_use_kernel(x: torch.Tensor, z: torch.Tensor) -> bool:
     """Gate: f32 on the card (or under ``set_interpret(True)``), ≥ _MIN_SIZE
-    pairs."""
-    if not (_INTERPRET or (x.is_cuda and z.is_cuda)):
+    pairs; False under ``set_enabled(False)``."""
+    if not _on_kernel_path(x, z):
         return False
     if x.dtype != torch.float32 or z.dtype != torch.float32:
         return False

@@ -10,7 +10,15 @@ benchmark configuration (N = 8192, D = 8, M = 4096, f32) and at a ragged
 width (N = 4500: a 512-wide tail slab and a 36-block row-panel trtri);
 then a deep kernel, σ²·Matérn-3/2 ∘ ``FunctionTransform`` of an MLP whose
 weights are a list of ``{"w", "b"}`` dicts: ∇logpdf at N = 8192 with
-respect to every MLP tensor, and two ``fit`` steps.
+respect to every MLP tensor, and two ``fit`` steps. Before those, the
+samplers: hyperparameter NUTS over the exact-GP logpdf (q = log(σ², ℓ,
+noise), N = 2048, D = 8, f32, 2 chains, ``chain_eval="loop"``; every
+leapfrog is one fused ∇logpdf), its ∇logpdf against f64, a non-PD gram
+that must be a rejection, its kernels against their plain versions and
+its peak memory; the same ∇logpdf with ``set_enabled(False)``, which
+must launch no kernel; latent-Poisson NUTS (256 latents, 64 chains,
+``chain_eval="vmap"``) with R-hat and bulk ESS; elliptical slice sampling
+of a LatentGP Poisson model; SMC on a conjugate Gaussian.
 Checks values and gradients against f64 ``torch.linalg`` oracles on the
 card, holds each hand-written kernel against its plain torch version at
 the shapes the main path gives it (the backward kernels also bit for bit
@@ -196,7 +204,7 @@ def _matern32_f64(r2, s2, ell):
     return s2 * (1.0 + t) * torch.exp(-t)
 
 
-def grad_oracle_f64(s2, ell, x, y, xs=None):
+def grad_oracle_f64(s2, ell, x, y, xs=None, noise=NOISE):
     """Dense f64 reference on the card, written apart from the port: the
     Matérn-3/2 gram from f64 distances, ``torch.linalg.cholesky``, and
     autograd of the logpdf (or of ``mean.sum() + var.sum()`` at ``xs``)
@@ -205,7 +213,7 @@ def grad_oracle_f64(s2, ell, x, y, xs=None):
 
     dev = x.device
     th = [torch.tensor(v, dtype=torch.float64, device=dev, requires_grad=True)
-          for v in (s2, ell, NOISE)]
+          for v in (s2, ell, noise)]
     x64, y64 = x.double(), y.double()
     n = x64.shape[0]
     with torch.no_grad():
@@ -647,13 +655,13 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     return recs
 
 
-def backward_kernel_checks(contr_in, bwd_in):
+def backward_kernel_checks(contr_in, bwd_in=None):
     """Kernels 5 and 6 on the inputs the gradient paths gave them:
     ``contr_in`` the arguments of the first ``logpdf_contraction`` call of
     the full-width ∇logpdf, ``bwd_in`` those of the first ``gram_bwd`` call
-    of each mode in the full-width ∇prediction. Each is held against its
-    plain version, called twice (the results must agree bit for bit), timed
-    beside its bound."""
+    of each mode in the full-width ∇prediction (None: kernel 5 alone). Each
+    is held against its plain version, called twice (the results must agree
+    bit for bit), timed beside its bound."""
     import torch
 
     from abstractgps_tpu_torch.ops import fused_gram
@@ -743,6 +751,8 @@ def backward_kernel_checks(contr_in, bwd_in):
         4.0 * (n * (n + 1) / 2 + 2 * n * d + 2 * n * q),
         sweep_flops(n, n, d, fam, True, 2 * q + 3, 4), [n, d, q])
 
+    if bwd_in is None:
+        return recs
     # gram_bwd in each mode of the ∇prediction: the symmetric single sweep
     # (cholesky_gram's backward, C + Cᵀ, the sum once per pair) first, then
     # the cross gram's two passes; bytes: the cotangent read once, x, z read
@@ -851,6 +861,401 @@ def profile_breakdown(name: str, fn, top: int = 10) -> None:
               f"{kname[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The samplers: hyperparameter NUTS on the fused path, the switch to the
+# library path, latent NUTS, ESS and SMC
+# ---------------------------------------------------------------------------
+
+# hyperparameter NUTS over the exact-GP logpdf (bench.py:256-281): N, D, chains,
+# init jitter, warmup, draws, tree depth
+HYPER = dict(n=2048, d=8, chains=2, jitter=0.05, warmup=8, draws=8, max_depth=5)
+HYPER_KERNELS = ("gram_tile", "slab_factor", "tri_inv_block", "logpdf_contraction")
+# latent-Poisson NUTS (bench.py:163-187)
+LATENT = dict(n=256, chains=64, jitter=0.1, warmup=64, draws=64, max_depth=8)
+# the latent chains must have mixed: largest R-hat over the 256 latents
+RHAT_MAX = 1.1
+
+
+def hyper_logdensity(x, y):
+    """log p(y | σ², ℓ, noise) + log N(q; 0, I) at q = log(σ², ℓ, noise),
+    σ²·Matérn-3/2 with lengthscale ℓ: the density of bench.py:260-264."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+
+    def logdens(q):
+        s2, ell, noise = torch.exp(q)
+        k = s2 * agt.with_lengthscale(agt.Matern32Kernel(), ell)
+        return agt.GP(k)(x, noise).logpdf(y) - 0.5 * torch.sum(q * q)
+    return logdens
+
+
+def kappa_f64(s2, ell, x, noise):
+    """κ(K + noise·I) ≤ λ_max / noise, λ_max by power iteration, for
+    σ²·Matérn-3/2 on the card in f64."""
+    import torch
+
+    with torch.no_grad():
+        x64 = x.double()
+        r2 = torch.cdist(x64, x64).square_()
+        r2.fill_diagonal_(0.0)
+        K = _matern32_f64(r2, s2, ell)
+        del r2
+        v = torch.ones(K.shape[0], dtype=torch.float64, device=x.device)
+        for _ in range(50):
+            v = K @ v
+            v = v / v.norm()
+        return (float(v @ (K @ v)) + noise) * 1.01 / noise
+
+
+class OneStepTo:
+    """Draws of one HMC transition of one leapfrog of unit step whose
+    momentum lands the position on ``target``, accepted whenever the
+    acceptance probability is above 0."""
+
+    def __init__(self, q0, g0, target):
+        self.p = target - q0 - 0.5 * g0
+
+    def momentum(self, q):
+        return self.p
+
+    def trajectory_length(self, q, high):
+        import torch
+
+        return torch.ones(q.shape[0], dtype=torch.int64, device=q.device)
+
+    def accept_uniform(self, q):
+        import torch
+
+        return torch.zeros(q.shape[0], dtype=q.dtype, device=q.device)
+
+
+def hyper_kernel_checks(captured):
+    """Kernels 1, 2, 4 and 5 against their plain versions on the inputs of
+    the first ∇logpdf of hyperparameter NUTS (``captured``: name → first
+    call's arguments). Tolerances as in ``kernel_checks``, κ of the slab and
+    of the diagonal blocks in f64."""
+    import torch
+
+    from abstractgps_tpu_torch.ops import blocked_chol, fused_gram
+
+    out = {}
+    x_, z_, fam, params, *_ = captured["gram_tile"]
+    pbuf = fused_gram._params_buffer(params, x_.device)
+    err = float((fused_gram.gram_tile(x_, z_, fam, params)
+                 - fused_gram.gram_tile_plain(x_, z_, fam, pbuf)).abs().max())
+    out["gram_tile"] = (err, 3e-5, list(x_.shape[:1]) + list(z_.shape))
+    S, B = captured["slab_factor"]
+    ev = torch.linalg.eigvalsh(S.double())
+    Lk, Wk = blocked_chol.slab_factor(S, B)
+    Lp, Wp = blocked_chol.slab_factor_plain(S, B)
+    err = max(float((Lk - Lp).abs().max()), float((Wk - Wp).abs().max()))
+    scale = max(float(Lp.abs().max()), float(Wp.abs().max()))
+    out["slab_factor"] = (err, _tol_rel(float(ev[-1] / ev[0])) * scale, [S.shape[0], B])
+    L, B = captured["tri_inv_block"]
+    nb = L.shape[0] // B
+    blocks = torch.stack([L[i * B:(i + 1) * B, i * B:(i + 1) * B] for i in range(nb)])
+    kb = float(torch.linalg.cond(blocks.double()).max())
+    want = blocked_chol.tri_inv_block_plain(L, B)
+    err = float((blocked_chol.tri_inv_block(L, B) - want).abs().max())
+    out["tri_inv_block"] = (err, _tol_rel(kb) * float(want.abs().max()), [nb, B, B])
+    recs = backward_kernel_checks(captured["logpdf_contraction"])
+    r = recs["logpdf_contraction"]
+    out["logpdf_contraction"] = (r["max_abs_err"], "x̄ within 2·√n·eps·Σ|terms|, scalars 1e-4",
+                                 r["shape"], r["ok"])
+    res = {}
+    for name, (err, tol, shape, *flag) in out.items():
+        ok = flag[0] if flag else err <= tol
+        print(f"[mcmc hyper kernel {name}] shape {shape}: max_abs_err {err:.3e} (tol "
+              f"{tol if isinstance(tol, str) else f'{tol:.3e}'}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        res[name] = dict(max_abs_err=err, shape=shape, ok=ok)
+    return res
+
+
+def run_hyper_nuts(seed, dev):
+    """[mcmc hyper] and [mcmc set_enabled]: hyperparameter NUTS at the
+    configuration of bench.py:256-281 on the fused path
+    (``chain_eval="loop"``), then the same ∇logpdf with both kernel modules
+    switched off. Returns (ok, the run's launches, the kernels' checks)."""
+    import numpy as np
+    import torch
+
+    from abstractgps_tpu_torch.inference.mcmc import (
+        HMCState,
+        hmc_kernel,
+        init_chain_positions,
+        logdensity_and_grad,
+        nuts_kernel,
+        run_mcmc,
+    )
+    from abstractgps_tpu_torch.ops import blocked_chol, fused_gram
+
+    c = HYPER
+    rng = np.random.default_rng(seed + 10)
+    x = torch.as_tensor(rng.uniform(size=(c["n"], c["d"])), dtype=torch.float32, device=dev)
+    y = torch.as_tensor(rng.normal(size=c["n"]), dtype=torch.float32, device=dev)
+    logdens = hyper_logdensity(x, y)
+    evals = [0]
+
+    def counted(q):
+        evals[0] += 1
+        return logdens(q)
+
+    init = init_chain_positions(seed, torch.zeros(3, dtype=torch.float32, device=dev),
+                                num_chains=c["chains"], jitter=c["jitter"])
+    f = logdensity_and_grad(logdens, lambda v: v, "loop")
+    q0 = init[:1]
+    ok = True
+
+    # one ∇logpdf (one chain's leapfrog) at chain 0's initial q: the kernels'
+    # inputs, the launches per leapfrog, the gradient against f64
+    with capture_first_input("gram_tile", "fused_gram") as c1, \
+            capture_first_input("slab_factor") as c2, \
+            capture_first_input("tri_inv_block") as c4, \
+            capture_first_input("logpdf_contraction", "fused_gram") as c5:
+        reset_launches()
+        ld0, g0 = f(q0)
+        torch.cuda.synchronize()
+        per_leapfrog = read_launches()
+    captured = {"gram_tile": c1.calls.get(None), "slab_factor": c2.calls.get(None),
+                "tri_inv_block": c4.calls.get(None), "logpdf_contraction": c5.calls.get(None)}
+    print(f"[mcmc hyper] N={c['n']} D={c['d']} f32: launches of one ∇logpdf (one chain's "
+          f"leapfrog) {json.dumps(per_leapfrog)}", flush=True)
+    th = [float(v) for v in torch.exp(q0[0].double())]
+    kappa = kappa_f64(th[0], th[1], x, th[2])
+    want = grad_oracle_f64(th[0], th[1], x, y, noise=th[2]).double()
+    want = want * torch.tensor(th, dtype=torch.float64) - q0[0].double().cpu()
+    got = g0[0].double().cpu()
+    tol = 10.0 * kappa * EPS32
+    rel = float((got - want).abs().max() / want.abs().max())
+    g_ok = bool(torch.isfinite(got).all()) and rel <= tol
+    print(f"[mcmc hyper] ∇logpdf at q0 {[round(v, 6) for v in got.tolist()]} (f64 "
+          f"{[round(v, 6) for v in want.tolist()]}); max error / max|∇| {rel:.3e}; "
+          f"kappa<= {kappa:.3e}; tol {tol:.3e}; {'ok' if g_ok else 'FAIL'}", flush=True)
+    ok = ok and g_ok
+
+    # a non-PD f32 gram (huge ℓ, tiny noise) on the fused path: no raise, a
+    # non-finite logpdf; the sampler's guard makes it −inf with a zero
+    # gradient, and a leapfrog that lands there is rejected
+    q_bad = torch.tensor([0.0, math.log(50.0), math.log(1e-9)], dtype=torch.float32, device=dev)
+    qb = q_bad.clone().requires_grad_()
+    raw = logdens(qb)
+    (raw_g,) = torch.autograd.grad(raw, qb)
+    ld_b, g_b = f(q_bad[None])
+    state = HMCState(q0, ld0, g0)
+    new, (ap, acc, _) = hmc_kernel(f, 1)(OneStepTo(q0, g0, q_bad[None]), state, 1.0,
+                                         torch.ones(3, dtype=torch.float32, device=dev))
+    rej_ok = (not bool(torch.isfinite(raw)) and float(ld_b[0]) == -math.inf
+              and bool((g_b == 0).all()) and float(ap[0]) == 0.0 and not bool(acc[0])
+              and torch.equal(new.q, q0))
+    print(f"[mcmc hyper] q=(0, log 50, log 1e-9): logpdf {float(raw.detach())} (no raise; grad "
+          f"{raw_g.tolist()}), guarded {float(ld_b[0])}, grad {g_b[0].tolist()}; a leapfrog "
+          f"landing there: accept prob {float(ap[0])}, accepted {bool(acc[0])}; "
+          f"{'ok' if rej_ok else 'FAIL'}", flush=True)
+    ok = ok and rej_ok
+
+    # the run; peak device memory after one ∇logpdf and after the run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f(q0)
+    torch.cuda.synchronize()
+    peak_one = torch.cuda.max_memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_mcmc(counted, init, seed + 1, num_chains=c["chains"], num_samples=c["draws"],
+                   num_warmup=c["warmup"], max_depth=c["max_depth"], chain_eval="loop")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_run = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(res.logdens).all())
+    mem_ok = peak_run <= 1.1 * peak_one
+    missing = [k for k in HYPER_KERNELS if launches[k] == 0]
+    draws = c["chains"] * c["draws"]
+    print(f"[mcmc hyper] {c['chains']} chains, {c['warmup']} warmup + {c['draws']} draws, "
+          f"max_depth {c['max_depth']}, chain_eval loop: every draw's logdensity finite "
+          f"{finite}; mean accept prob {float(res.accept_prob.mean()):.4f}; leapfrog steps of "
+          f"the draws {int(res.num_steps.sum())}; ∇logpdf evaluations (warmup included) "
+          f"{evals[0]}; divergences {int(res.diverging.sum())}; step sizes "
+          f"{res.step_size.tolist()}; wall {wall:.3f} s, {draws / wall:.3f} draws/s, "
+          f"{evals[0] / wall:.3f} leapfrogs/s (one chain's leapfrog = one ∇logpdf); "
+          f"launches {json.dumps(launches)}; peak device memory after one ∇logpdf "
+          f"{peak_one} B, after the run {peak_run} B ({peak_run / peak_one:.4f}x)", flush=True)
+    hyper_ok = finite and mem_ok and not missing
+    if not hyper_ok:
+        print(f"[mcmc hyper] FAIL: finite {finite}, memory within 10% {mem_ok}, kernels not "
+              f"launched {missing}", flush=True)
+    ok = ok and hyper_ok
+    # one transition at the adapted step sizes, traced: the device's busy share
+    last = res.positions[:, -1].contiguous()
+    state = HMCState(last, *f(last))
+    kern = nuts_kernel(f, max_depth=c["max_depth"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    profile_breakdown("mcmc hyper transition",
+                      lambda: kern(gen, state, res.step_size, res.inv_mass), top=6)
+    with torch.no_grad():
+        checks = hyper_kernel_checks(captured)
+    ok = ok and all(r["ok"] for r in checks.values())
+
+    # [mcmc set_enabled]: both modules off → the library path, no launch
+    blocked_chol.set_enabled(False)
+    fused_gram.set_enabled(False)
+    try:
+        reset_launches()
+        ld_off, g_off = f(q0)
+        torch.cuda.synchronize()
+        off_launches = read_launches()
+    finally:
+        blocked_chol.set_enabled(True)
+        fused_gram.set_enabled(True)
+    err_ld = abs(float(ld_off[0]) - float(ld0[0])) / abs(float(ld0[0]))
+    err_g = float((g_off - g0).abs().max() / g0.abs().max())
+    off_ok = (all(v == 0 for v in off_launches.values()) and err_ld <= tol and err_g <= tol)
+    print(f"[mcmc set_enabled] logpdf {float(ld_off[0]):.6f} (kernel path "
+          f"{float(ld0[0]):.6f}), rel error {err_ld:.3e}; ∇ max error / max|∇| {err_g:.3e}; "
+          f"tol {tol:.3e}; launches {json.dumps(off_launches)}; "
+          f"{'ok' if off_ok else 'FAIL'}", flush=True)
+    ok = ok and off_ok
+    return ok, launches, checks
+
+
+def run_latent_nuts(seed, dev):
+    """[mcmc latent]: latent-Poisson NUTS at the configuration of
+    bench.py:163-187 (``chain_eval="vmap"``); it launches no port kernel."""
+    import numpy as np
+    import torch
+
+    from abstractgps_tpu_torch.inference.mcmc import (
+        HMCState,
+        diagnostics,
+        init_chain_positions,
+        logdensity_and_grad,
+        nuts_kernel,
+        run_mcmc,
+    )
+
+    c = LATENT
+    n = c["n"]
+    rng = np.random.default_rng(seed + 20)
+    xl = rng.uniform(size=(n, 1))
+    t = np.sqrt(3.0) * np.abs(xl - xl.T)
+    # the data in f64 on the host, as the benchmark draws them
+    Ll_h = np.linalg.cholesky((1.0 + t) * np.exp(-t) + 1e-8 * np.eye(n))
+    u_h = 2.0 + Ll_h @ rng.normal(size=n)
+    y = torch.as_tensor(rng.poisson(np.exp(np.clip(u_h, -10, 8))), dtype=torch.float32,
+                        device=dev)
+    Ll = torch.as_tensor(Ll_h, dtype=torch.float32, device=dev)
+
+    def logjoint(v):
+        u = 2.0 + Ll @ v
+        return -0.5 * torch.sum(v * v) + torch.sum(y * u - torch.exp(u) - torch.lgamma(y + 1.0))
+
+    init = init_chain_positions(seed, torch.zeros(n, dtype=torch.float32, device=dev),
+                                num_chains=c["chains"], jitter=c["jitter"])
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_mcmc(logjoint, init, seed + 1, num_chains=c["chains"], num_samples=c["draws"],
+                   num_warmup=c["warmup"], max_depth=c["max_depth"], chain_eval="vmap")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    finite = bool(torch.isfinite(res.logdens).all())
+    rh = diagnostics.rhat_tree(res.positions)
+    es = diagnostics.ess_tree(res.positions)
+    draws = c["chains"] * c["draws"]
+    no_launch = all(v == 0 for v in launches.values())
+    mixed = float(np.max(rh)) < RHAT_MAX
+    ok = finite and no_launch and mixed
+    print(f"[mcmc latent] n_lat={n}, {c['chains']} chains, {c['warmup']} warmup + "
+          f"{c['draws']} draws, max_depth {c['max_depth']}, chain_eval vmap: every draw's "
+          f"logdensity finite {finite}; mean accept prob {float(res.accept_prob.mean()):.4f}; "
+          f"leapfrog steps of the draws {int(res.num_steps.sum())}; divergences "
+          f"{int(res.diverging.sum())}; wall {wall:.3f} s, {draws / wall:.3f} draws/s; R-hat "
+          f"max {float(np.max(rh)):.4f} (< {RHAT_MAX}: {mixed}) median "
+          f"{float(np.median(rh)):.4f}; bulk ESS min "
+          f"{float(np.min(es)):.1f} median {float(np.median(es)):.1f}; no port kernel "
+          f"launched (pure torch) {no_launch}; {'ok' if ok else 'FAIL'}", flush=True)
+    # one transition at the adapted step sizes, traced: the device's busy share
+    f = logdensity_and_grad(logjoint, lambda v: v, "vmap")
+    last = res.positions[:, -1].contiguous()
+    state = HMCState(last, *f(last))
+    kern = nuts_kernel(f, max_depth=c["max_depth"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    with torch.no_grad():
+        profile_breakdown("mcmc latent transition",
+                          lambda: kern(gen, state, res.step_size, res.inv_mass), top=6)
+    return ok
+
+
+def run_ess_smc(seed, dev):
+    """[ess]: elliptical slice sampling of a LatentGP Poisson model at
+    n = 256; [smc]: the conjugate Gaussian of tests/test_ess_smc.py:55
+    against its closed form (the tolerances of that test)."""
+    import numpy as np
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch import distributions as dist
+    from abstractgps_tpu_torch.inference.mcmc import run_ess, run_smc
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    n = 256
+    x = torch.sort(torch.rand(n, generator=gen, device=dev)).values
+    k = agt.with_lengthscale(agt.Matern32Kernel(), 0.2).to(device=dev, dtype=torch.float32)
+    lfx = agt.LatentGP(agt.GP(k), lambda f: dist.Poisson(torch.exp(f)), 1e-3)(x)
+    truth = lfx.rand(gen)
+    prior = lfx.fx.to_mvnormal()
+
+    def loglik(u):
+        return torch.sum(lfx.lik(u).logpdf(truth["y"]))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    qs, lls = run_ess(loglik, prior.sample, torch.zeros(n, device=dev), gen, num_samples=200,
+                      num_burnin=100, num_chains=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(qs).all()) and bool(torch.isfinite(lls).all())
+    corr = float(np.corrcoef(qs.reshape(-1, n).mean(0).double().cpu().numpy(),
+                             truth["f"].detach().double().cpu().numpy())[0, 1])
+    ess_ok = finite and qs.shape == (4, 200, n)
+    print(f"[ess] LatentGP Poisson n={n}, 4 chains, 100 burn-in + 200 draws: finite {finite}; "
+          f"corr(posterior mean, true f) {corr:.4f}; wall {wall:.3f} s, "
+          f"{800 / wall:.3f} draws/s; launches {json.dumps(read_launches())}; "
+          f"{'ok' if ess_ok else 'FAIL'}", flush=True)
+
+    dim, s2 = 3, 0.5
+    y = torch.as_tensor(np.random.default_rng(seed + 31).normal(size=dim), dtype=torch.float32,
+                        device=dev)
+
+    def logprior(q):
+        return -0.5 * torch.sum(q * q) - 0.5 * dim * math.log(2 * math.pi)
+
+    def loglik_g(q):
+        return -0.5 * torch.sum((q - y) ** 2) / s2 - 0.5 * dim * math.log(2 * math.pi * s2)
+
+    particles0 = torch.randn((2048, dim), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    res = run_smc(logprior, loglik_g, particles0, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    post_var = 1.0 / (1.0 + 1.0 / s2)
+    yh = y.double().cpu().numpy()
+    mean_cf, mean = post_var * yh / s2, res.particles.double().mean(0).cpu().numpy()
+    var = res.particles.double().var(0, unbiased=False).cpu().numpy()
+    log_z = float(-0.5 * np.sum(yh ** 2) / (1 + s2) - 0.5 * dim * np.log(2 * np.pi * (1 + s2)))
+    smc_ok = (bool(np.all(np.abs(mean - mean_cf) <= 0.08))
+              and bool(np.all(np.abs(var - post_var) <= 0.08))
+              and abs(float(res.log_evidence) - log_z) <= 0.15)
+    print(f"[smc] conjugate Gaussian, 2048 particles, dim {dim}: posterior mean "
+          f"{np.round(mean, 4).tolist()} (closed form {np.round(mean_cf, 4).tolist()}), var "
+          f"{np.round(var, 4).tolist()} (closed form {post_var:.4f}), log evidence "
+          f"{float(res.log_evidence):.4f} (closed form {log_z:.4f}), {res.num_stages} stages; "
+          f"tol 0.08 / 0.08 / 0.15; wall {wall:.3f} s; {'ok' if smc_ok else 'FAIL'}", flush=True)
+    return ess_ok and smc_ok
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -886,6 +1291,15 @@ def main(argv=None) -> int:
 
     ok = True
     f32 = torch.float32
+
+    # ---- the samplers first, while little else holds device memory --------
+    t0 = time.perf_counter()
+    hyper_ok, counts_hyper, hyper_checks = run_hyper_nuts(args.seed, dev)
+    latent_ok = run_latent_nuts(args.seed, dev)
+    ess_smc_ok = run_ess_smc(args.seed, dev)
+    ok = hyper_ok and latent_ok and ess_smc_ok
+    print(f"[mcmc] sampler phases took {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
     # ---- the main path: full width, then the ragged width -----------------
     N, M, D, N_RAGGED, M_RAGGED = 8192, 4096, 8, 4500, 1024
@@ -950,7 +1364,7 @@ def main(argv=None) -> int:
             "logpdf ragged": ragged_counts["logpdf"], "pred ragged": ragged_counts["pred"],
             "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
             "fit full": counts_fit, "deep grad full": counts_deep,
-            "deep fit full": counts_deep_fit}
+            "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -964,7 +1378,8 @@ def main(argv=None) -> int:
             "deep grad full": ("gram_tile", "slab_factor", "tri_inv_block",
                                "logpdf_contraction"),
             "deep fit full": ("gram_tile", "slab_factor", "tri_inv_block",
-                              "logpdf_contraction")}
+                              "logpdf_contraction"),
+            "mcmc hyper": HYPER_KERNELS}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
     missing = {r: ks for r, ks in missing.items() if ks}
     if missing or set(bwd_in.calls) != {"sym", "plain", "transpose"} or not contr_in.calls:
@@ -1083,6 +1498,10 @@ def main(argv=None) -> int:
                if k in r},
             **({"modes": {m_: {k: v for k, v in mr.items() if k not in ("ok", "tol")}
                           for m_, mr in r["modes"].items()}} if "modes" in r else {}),
+            **({"mcmc_hyper": {"launches": counts_hyper[name],
+                               "max_abs_err": hyper_checks[name]["max_abs_err"],
+                               "shape": hyper_checks[name]["shape"]}}
+               if name in hyper_checks else {}),
         })
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

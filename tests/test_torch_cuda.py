@@ -511,3 +511,36 @@ def test_grad_on_the_card_matches_f64(cuda, gen):
         tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
         assert torch.isfinite(got).all()
         _close(got, want, rel=tol)
+
+
+def test_set_enabled_false_launches_no_kernel(cuda, gen):
+    # with both modules' kernels switched off, a card tensor at size takes
+    # the library path: no port kernel launches, and the logpdf and its
+    # gradient agree with the kernel path's within 10·κ·eps
+    n = 2048
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
+
+    def lml_and_grad():
+        th = [torch.tensor(v, dtype=torch.float32, device=cuda, requires_grad=True)
+              for v in (1.1, 0.9, 0.1)]
+        lp = agt.GP(th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1]))(x, th[2]).logpdf(y)
+        return torch.cat([lp.detach()[None], *[g[None] for g in torch.autograd.grad(lp, th)]])
+
+    cuda_ops.reset_launches()
+    on = lml_and_grad()
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["slab_factor"] > 0 and cuda_ops.LAUNCHES["logpdf_contraction"] > 0
+    blocked_chol.set_enabled(False)
+    fused_gram.set_enabled(False)
+    try:
+        cuda_ops.reset_launches()
+        off = lml_and_grad()
+        torch.cuda.synchronize()
+        assert all(v == 0 for v in cuda_ops.LAUNCHES.values()), cuda_ops.LAUNCHES
+    finally:
+        blocked_chol.set_enabled(True)
+        fused_gram.set_enabled(True)
+    tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
+    assert torch.isfinite(off).all()
+    assert float(((on - off).abs() / off.abs()).max()) <= tol
