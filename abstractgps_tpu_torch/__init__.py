@@ -1,25 +1,37 @@
 """abstractgps_tpu_torch — the PyTorch/CUDA port of abstractgps_tpu.
 
-Exact GP regression on an NVIDIA H100 (reference surface: AbstractGPs.jl):
-GP priors, FiniteGP projections, the log marginal likelihood, and exact
+GP regression on an NVIDIA H100 (reference surface: AbstractGPs.jl): GP
+priors, FiniteGP projections, the log marginal likelihood, and exact
 posteriors with sequential conditioning, their gradients, and MLE-II
 fitting over tagged parameter trees (``params``, ``fit``, ``fit_lbfgs``);
-LatentGPs under the likelihoods of ``distributions``, and the NUTS, HMC,
-elliptical-slice and SMC samplers of ``inference.mcmc``.
-Kernels and means are ``nn.Module``s; models and ops are plain functions
-on tensors. At size on the card (f32) the hot path runs hand-written CUDA
-kernels (``csrc/``): the fused gram tile, the slab and block Cholesky
-factor+inverse, the batched triangular inverse behind the wide solves and
-the logpdf backward, the gram VJP and the logpdf-backward contraction.
+the sparse VFE/DTC approximations with online updates and their ELBO
+(``neg_elbo``); the stochastic variational GP (``SVGP``, minibatch Adam
+and natural-gradient training); streaming exact conditioning into a
+fixed-capacity cache (``models.online``); LatentGPs under the likelihoods
+of ``distributions``, and the NUTS, HMC, elliptical-slice and SMC samplers
+of ``inference.mcmc``. Kernels, means and the SVGP state are
+``nn.Module``s; the other models and the ops are plain classes and
+functions on tensors. At size on the card (f32) the hot path runs
+hand-written CUDA kernels (``csrc/``): the fused gram tile, the slab and
+block Cholesky factor+inverse, the batched triangular inverse behind the
+wide solves and the logpdf backward, the gram VJP and the logpdf-backward
+contraction. ``utils.test_utils`` holds the interface conformance suites.
 
 Tensors keep their device; other inputs go to the default device
 (``"cuda"``; ``set_default_device("cpu")`` for CPU use). The JAX package
 ``abstractgps_tpu`` is the frozen reference this port is tested against.
 """
 
-from . import distributions, inference, kernels, ops, params  # noqa: F401
-from .convert import kernel_from_numpy, mean_from_numpy, noise_from_numpy, params_from_numpy
-from .inference import FitResult, fit, fit_lbfgs, nlml
+from . import distributions, inference, kernels, ops, params, utils  # noqa: F401
+from .convert import (
+    kernel_from_numpy,
+    mean_from_numpy,
+    noise_from_numpy,
+    online_from_numpy,
+    params_from_numpy,
+    svgp_from_numpy,
+)
+from .inference import FitResult, fit, fit_lbfgs, neg_elbo, nlml
 from .kernels import *  # noqa: F401,F403 — kernel zoo re-export
 from .kernels.base import (
     ARDTransform,
@@ -45,6 +57,25 @@ from .models.finite_gp import (
 )
 from .models.gp import AbstractGP, GP, cov, mean, mean_and_cov, mean_and_var, var
 from .models.latent_gp import LatentFiniteGP, LatentGP
+from .models.sparse import (
+    DTC,
+    VFE,
+    ApproxPosteriorGP,
+    elbo,
+    inducing_points,
+    update_posterior,
+)
+from .models.svgp import (
+    SVGP,
+    SVGPPosterior,
+    fit_svgp,
+    fit_svgp_natgrad,
+    natgrad_step,
+    svgp_elbo,
+    svgp_elbo_quadrature,
+    svgp_init,
+    svgp_posterior,
+)
 from .ops.distance import (
     as_inputs,
     col_vecs,
@@ -80,6 +111,15 @@ def posterior(*args):
 def approx_log_evidence(approx, fx, y):
     """Approximate log marginal likelihood under ``approx``."""
     return approx.approx_log_evidence(fx, y)
+
+
+def dtc(d: DTC, fx, y):
+    """Deprecated alias for ``approx_log_evidence(DTC(...), fx, y)``
+    (src/deprecations.jl:9)."""
+    import warnings
+
+    warnings.warn("dtc is deprecated; use approx_log_evidence", DeprecationWarning)
+    return d.approx_log_evidence(fx, y)
 
 
 def std(fx: FiniteGP):

@@ -20,6 +20,12 @@ A tagged parameter tree (``params``) is carried across by
 ``params_from_numpy``: nested dicts, lists and tuples whose leaves are
 ``{"type": "Positive", "raw": a}``, ``{"type": "Bounded", "raw": a, "lo":
 lo, "hi": hi}``, ``{"type": "Fixed", "val": v}`` or plain arrays.
+
+Model states are carried across by ``svgp_from_numpy`` (an ``SVGP``'s
+kernel and mean descriptions and its z, m, C_raw and jitter arrays) and
+``online_from_numpy`` (an ``OnlineGP`` cache of a GP prior). A sparse
+posterior carries nothing beyond its kernel, noise and inducing inputs,
+which the converters above cover.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from .means import ConstMean, ZeroMean
 from .ops.distance import resolve_device
 from .ops.noise import DenseNoise, DiagonalNoise, IsotropicNoise
 
-__all__ = ["kernel_from_numpy", "mean_from_numpy", "noise_from_numpy", "params_from_numpy"]
+__all__ = ["kernel_from_numpy", "mean_from_numpy", "noise_from_numpy", "params_from_numpy",
+           "svgp_from_numpy", "online_from_numpy"]
 
 _TRANSFORMS = {
     "ScaleTransform": _base.ScaleTransform,
@@ -116,3 +123,29 @@ def params_from_numpy(tree, device=None, dtype=torch.float64):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype) for v in tree)
     return _leaf(tree, dtype, device).requires_grad_()
+
+
+def svgp_from_numpy(tree: dict, device=None, dtype=torch.float64):
+    """The port's ``SVGP`` for ``{"kernel": k, "mean": mu, "z": z, "m": m,
+    "C_raw": C_raw, "jitter": j}``: ``k`` and ``mu`` as ``kernel_from_numpy``
+    and ``mean_from_numpy`` take them, the rest numpy arrays."""
+    from .models.svgp import SVGP
+
+    device = resolve_device(device)
+    return SVGP(mean_from_numpy(tree["mean"], device, dtype),
+                kernel_from_numpy(tree["kernel"], device, dtype),
+                *(_leaf(tree[k], dtype, device) for k in ("z", "m", "C_raw", "jitter")))
+
+
+def online_from_numpy(tree: dict, device=None, dtype=torch.float64):
+    """The port's ``OnlineGP`` for ``{"prior": {"kernel": k, "mean": mu},
+    "L": L, "alpha": a, "delta": d, "x": x, "count": c}``: the prior a
+    ``GP(mean, kernel)``, the cache numpy arrays, ``count`` an integer."""
+    from .models.gp import GP
+    from .models.online import OnlineGP
+
+    device = resolve_device(device)
+    prior = GP(mean_from_numpy(tree["prior"]["mean"], device, dtype),
+               kernel_from_numpy(tree["prior"]["kernel"], device, dtype))
+    return OnlineGP(prior, *(_leaf(tree[k], dtype, device) for k in ("L", "alpha", "delta", "x")),
+                    torch.tensor(int(tree["count"]), dtype=torch.int64, device=device))

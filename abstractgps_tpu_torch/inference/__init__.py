@@ -10,7 +10,7 @@ from .mcmc import (
     run_mcmc,
     run_smc,
 )
-from .training import FitResult, fit, fit_lbfgs, nlml
+from .training import FitResult, fit, fit_lbfgs, neg_elbo, nlml
 
-__all__ = ["fit", "fit_lbfgs", "nlml", "FitResult", "training", "mcmc", "run_mcmc",
+__all__ = ["fit", "fit_lbfgs", "nlml", "neg_elbo", "FitResult", "training", "mcmc", "run_mcmc",
            "MCMCResult", "init_chain_positions", "run_ess", "run_smc", "SMCResult"]

@@ -3,13 +3,11 @@
 Counterpart of the JAX package's ``inference/training.py`` (reference:
 examples/0-intro-1d/script.jl:369-426, examples/1-mauna-loa/script.jl:
 210-230). The parameter tree is tagged with bijectors
-(``abstractgps_tpu_torch.params``), the loss is ``-logpdf`` of a FiniteGP
-rebuilt from the constrained tree each step, and its gradient flows back
+(``abstractgps_tpu_torch.params``), the loss is ``-logpdf`` or ``-elbo``
+built from the constrained tree each step, and its gradient flows back
 to the raw tensors through the kernels' backward passes. The per-step loss
 history is written on the device: no host read per step (L-BFGS's line
 search and its gradient-norm stop read the host anyway).
-
-``neg_elbo`` (sparse VI) waits for the port of ``models/sparse.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +18,7 @@ import torch
 
 from .. import params as P
 
-__all__ = ["FitResult", "fit", "fit_lbfgs", "nlml"]
+__all__ = ["FitResult", "fit", "fit_lbfgs", "nlml", "neg_elbo"]
 
 _MAX_LINESEARCH = 25  # evaluations per L-BFGS line search (torch's default)
 
@@ -43,6 +41,23 @@ def nlml(build_fx: Callable, x, y) -> Callable:
     def loss(raw_theta):
         fx = build_fx(P.constrain(raw_theta), x)
         return -fx.logpdf(y)
+
+    return loss
+
+
+def neg_elbo(build_parts: Callable, x, y) -> Callable:
+    """Negative Titsias ELBO objective for sparse VI.
+
+    ``build_parts(theta, x)`` must return ``(vfe, fx)`` — the VFE wrapper
+    around the inducing projection and the data projection — for a
+    constrained theta (reference loop: examples/0-intro-1d/script.jl:384-402).
+    Returns ``loss(raw_theta)``.
+    """
+    from ..models.sparse import elbo
+
+    def loss(raw_theta):
+        vfe, fx = build_parts(P.constrain(raw_theta), x)
+        return -elbo(vfe, fx, y)
 
     return loss
 

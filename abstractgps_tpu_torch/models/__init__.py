@@ -1,4 +1,21 @@
+"""GP models: the prior (``gp``), its finite projections (``finite_gp``),
+the exact posterior with sequential conditioning (``exact_posterior``),
+LatentGPs (``latent_gp``), the sparse VFE/DTC approximations with online
+updates (``sparse``), the stochastic variational GP (``svgp``) and
+streaming exact conditioning into a fixed-capacity cache (``online``)."""
+
 from .gp import GP, AbstractGP  # noqa: F401
 from .finite_gp import FiniteGP  # noqa: F401
 from .exact_posterior import PosteriorGP, posterior, ExactInference  # noqa: F401
 from .latent_gp import LatentFiniteGP, LatentGP  # noqa: F401
+from .sparse import VFE, DTC, ApproxPosteriorGP, elbo, update_posterior  # noqa: F401
+from .svgp import (  # noqa: F401
+    SVGP,
+    SVGPPosterior,
+    fit_svgp,
+    fit_svgp_natgrad,
+    svgp_elbo,
+    svgp_elbo_quadrature,
+    svgp_init,
+    svgp_posterior,
+)

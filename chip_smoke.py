@@ -18,7 +18,17 @@ that must be a rejection, its kernels against their plain versions and
 its peak memory; the same ∇logpdf with ``set_enabled(False)``, which
 must launch no kernel; latent-Poisson NUTS (256 latents, 64 chains,
 ``chain_eval="vmap"``) with R-hat and bulk ESS; elliptical slice sampling
-of a LatentGP Poisson model; SMC on a conjugate Gaussian.
+of a LatentGP Poisson model; SMC on a conjugate Gaussian. Then the sparse
+slice at BASELINE.json config 3 (n = 50 000, D = 8, M = 512, B = 2048,
+σ²·SE∘ARD, the data of ``examples/sparse_vfe_50k.py`` drawn on the card):
+20 joint Adam steps of the SVGP ELBO from a constrained tree and 5
+natural-gradient steps, one ∇ at M = 1024 against f64 (``[svgp]``); the
+collapsed VFE bound and its gradient on all 50 000 points against f64,
+DTC, the VFE posterior and both ``update_posterior`` paths against the
+batch posterior (``[sparse]``); 16 streaming extends of 512 into a cache
+of capacity 8192 against the exact posterior, and one past the capacity,
+which must give NaN (``[online]``); each with its launches per step or
+extend and its kernels against their plain versions on its own inputs.
 Checks values and gradients against f64 ``torch.linalg`` oracles on the
 card, holds each hand-written kernel against its plain torch version at
 the shapes the main path gives it (the backward kernels also bit for bit
@@ -655,6 +665,64 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     return recs
 
 
+def _bwd_compare(name, got, want, xbar_mag, m, shape):
+    """A backward kernel's (scalars..., x̄) against its plain version's.
+
+    x̄ = xscale·Σ_c w_rc (x_r − z_c) sums m f32 terms per entry, in another
+    order and form than the plain version (which takes rowsum(w)·x − w·z, as
+    the TPU kernel did). Rounding of two such sums differs by ~√m·eps times
+    the sum of the terms' magnitudes (``xbar_mag``, entry by entry); the
+    largest ratio seen on the card at m = 8192 is 0.35 of that, so we allow
+    2·√m·eps·Σ|terms|. A tile of 64 terms skipped or counted twice moves an
+    entry by ~8/m·Σ|terms| with random signs, ~90× this tolerance at
+    m = 8192. The scalars are f64 sums of f32 products that differ by a few
+    ulp: 1e-4 relative."""
+    import torch
+
+    *scalars, xb = got
+    *scalars_w, xb_w = want
+    errs = [float((g_.double() - w_.double()).abs()) for g_, w_ in zip(scalars, scalars_w)]
+    ok = all(e <= 1e-4 * abs(float(w_)) for e, w_ in zip(errs, scalars_w))
+    dx = (xb - xb_w).abs()
+    tol = (2.0 * math.sqrt(m) * EPS32 * xbar_mag).clamp_min(torch.finfo(torch.float32).tiny)
+    ratio = float((dx / tol).max())
+    errs.append(float(dx.max()))
+    ok = ok and ratio <= 1.0
+    print(f"[kernel {name}] shape {shape}: abs errors {[f'{e:.3e}' for e in errs]} "
+          f"(scalars: tol 1e-4 relative; x̄: largest error / tolerance {ratio:.3e}, "
+          f"tol 1; max error / max|x̄| {errs[-1] / max(float(xb_w.abs().max()), 1e-300):.3e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return max(errs), ok
+
+
+def _xbar_mag(w, x_, z_, xscale):
+    from abstractgps_tpu_torch.ops.precision import full_f32
+
+    w = w.abs()
+    with full_f32():
+        return xscale * (w.sum(1, keepdim=True) * x_.abs() + w @ z_.abs())
+
+
+def _repeat(fn, name):
+    import torch
+
+    a, b = fn(), fn()
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    print(f"[kernel {name}] two calls on the same inputs identical bit for bit: {same}",
+          flush=True)
+    return a, same
+
+
+def _bwd_record(name, err, ok, fn, plain_ms, nbytes, flops, shape):
+    # the time through the wrapper (CUDA events) and the device time
+    b, by = bound_ms(nbytes, flops)
+    ms, dev = cuda_ms(fn, 20), device_ms(fn)
+    print(f"[kernel {name}] shape {shape}: {ms:.4f} ms, device time per call {_ms(dev)} ms, "
+          f"plain {plain_ms:.4f} ms, library None ms, bound {b:.4f} ms ({by})", flush=True)
+    return dict(max_abs_err=err, tol=None, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b, bound_by=by, ok=ok, shape=shape)
+
+
 def backward_kernel_checks(contr_in, bwd_in=None):
     """Kernels 5 and 6 on the inputs the gradient paths gave them:
     ``contr_in`` the arguments of the first ``logpdf_contraction`` call of
@@ -668,54 +736,6 @@ def backward_kernel_checks(contr_in, bwd_in=None):
     from abstractgps_tpu_torch.ops.precision import full_f32
 
     recs = {}
-
-    def compare(name, got, want, xbar_mag, m, shape):
-        # x̄ = xscale·Σ_c w_rc (x_r − z_c) sums m f32 terms per entry, in
-        # another order and form than the plain version (which takes
-        # rowsum(w)·x − w·z, as the TPU kernel did). Rounding of two such
-        # sums differs by ~√m·eps times the sum of the terms' magnitudes
-        # (``xbar_mag``, entry by entry); the largest ratio seen on the card
-        # at m = 8192 is 0.35 of that, so we allow 2·√m·eps·Σ|terms|. A
-        # tile of 64 terms skipped or counted twice moves an entry by
-        # ~8/m·Σ|terms| with random signs, ~90× this tolerance at m = 8192.
-        # The scalars are f64 sums of f32 products that differ by a few
-        # ulp: 1e-4 relative.
-        *scalars, xb = got
-        *scalars_w, xb_w = want
-        errs = [float((g_.double() - w_.double()).abs()) for g_, w_ in zip(scalars, scalars_w)]
-        ok = all(e <= 1e-4 * abs(float(w_)) for e, w_ in zip(errs, scalars_w))
-        dx = (xb - xb_w).abs()
-        tol = (2.0 * math.sqrt(m) * EPS32 * xbar_mag).clamp_min(torch.finfo(torch.float32).tiny)
-        ratio = float((dx / tol).max())
-        errs.append(float(dx.max()))
-        ok = ok and ratio <= 1.0
-        print(f"[kernel {name}] shape {shape}: abs errors {[f'{e:.3e}' for e in errs]} "
-              f"(scalars: tol 1e-4 relative; x̄: largest error / tolerance {ratio:.3e}, "
-              f"tol 1; max error / max|x̄| {errs[-1] / float(xb_w.abs().max()):.3e}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        return max(errs), ok
-
-    def xbar_mag(w, x_, z_, xscale):
-        w = w.abs()
-        with full_f32():
-            return xscale * (w.sum(1, keepdim=True) * x_.abs() + w @ z_.abs())
-
-    def repeat(fn, name):
-        a, b = fn(), fn()
-        same = all(torch.equal(u, v) for u, v in zip(a, b))
-        print(f"[kernel {name}] two calls on the same inputs identical bit for bit: {same}",
-              flush=True)
-        return a, same
-
-    def record(name, err, ok, fn, plain_ms, nbytes, flops, shape):
-        # the time through the wrapper (CUDA events) and the device time
-        b, by = bound_ms(nbytes, flops)
-        ms, dev = cuda_ms(fn, 20), device_ms(fn)
-        print(f"[kernel {name}] shape {shape}: {ms:.4f} ms, device time per call {_ms(dev)} ms, "
-              f"plain {plain_ms:.4f} ms, library None ms, bound {b:.4f} ms ({by})", flush=True)
-        return dict(max_abs_err=err, tol=None, ms=ms, device_ms=dev, plain_ms=plain_ms,
-                    library_ms=None, bound_ms=b, bound_by=by, ok=ok, shape=shape)
-
     # logpdf_contraction at the full-width ∇logpdf. Operations: C and g(d²)
     # are symmetric, so d², C (2q + 3) and the map VJP are needed once per
     # entry of the lower triangle, x̄′ once per ordered entry; bytes: T's
@@ -723,7 +743,7 @@ def backward_kernel_checks(contr_in, bwd_in=None):
     xp, s2, ag, a, gsum, T, fam, params = contr_in
     n, d = xp.shape
     q = a.shape[1]
-    got, same = repeat(lambda: fused_gram.logpdf_contraction(*contr_in), "logpdf_contraction")
+    got, same = _repeat(lambda: fused_gram.logpdf_contraction(*contr_in), "logpdf_contraction")
     # T's strict upper triangle is never read: NaN there changes no bit
     upper = torch.ones((n, n), dtype=torch.bool, device=T.device).triu_(1)
     got_nan = fused_gram.logpdf_contraction(xp, s2, ag, a, gsum, T.masked_fill(upper, math.nan),
@@ -740,52 +760,59 @@ def backward_kernel_checks(contr_in, bwd_in=None):
     with full_f32():
         Ct = 0.5 * (ag @ a.T - gsum * (Tl + Tl.T - torch.diag(torch.diagonal(Tl))))
     _, dg, _ = fused_gram._map_vjp(fam, fused_gram._sqdist_plain(xp, xp, True), pbuf)
-    mag = xbar_mag(Ct * s2 * dg, xp, xp, 4.0)
+    mag = _xbar_mag(Ct * s2 * dg, xp, xp, 4.0)
     del Tl, Ct, dg
-    err, ok = compare("logpdf_contraction", got, want, mag, n, [n, d, q])
+    err, ok = _bwd_compare("logpdf_contraction", got, want, mag, n, [n, d, q])
     plain = cuda_ms(lambda: fused_gram.logpdf_contraction_plain(xp, s2, ag, a, gsum, T, fam,
                                                                 pbuf), 3)
-    recs["logpdf_contraction"] = record(
+    recs["logpdf_contraction"] = _bwd_record(
         "logpdf_contraction", err, ok and same,
         lambda: fused_gram.logpdf_contraction(*contr_in), plain,
         4.0 * (n * (n + 1) / 2 + 2 * n * d + 2 * n * q),
         sweep_flops(n, n, d, fam, True, 2 * q + 3, 4), [n, d, q])
+    if bwd_in is not None:
+        recs["gram_bwd"] = gram_bwd_checks(bwd_in)
+    return recs
 
-    if bwd_in is None:
-        return recs
-    # gram_bwd in each mode of the ∇prediction: the symmetric single sweep
-    # (cholesky_gram's backward, C + Cᵀ, the sum once per pair) first, then
-    # the cross gram's two passes; bytes: the cotangent read once, x, z read
-    # and x̄ written once. The kernel's line sums the three modes (one
-    # ∇prediction's calls) and lists each under "modes".
+
+def gram_bwd_checks(bwd_in, tag="gram_bwd"):
+    """Kernel 6 in each mode on the arguments of its first call of that mode
+    in a run (``bwd_in``: mode → arguments): against its plain version, bit
+    for bit against a second call, timed beside its bound. The symmetric
+    single sweep (C + Cᵀ, the sum once per pair) and the cross gram's two
+    passes; bytes: the cotangent read once, x, z read and x̄ written once.
+    The record sums the modes' times (one run's calls) and lists each under
+    "modes"."""
+    from abstractgps_tpu_torch.ops import fused_gram
+
     modes = {}
     for mode in ("sym", "plain", "transpose"):
+        if mode not in bwd_in:
+            continue
         x_, z_, C, fam, params, sym, _ = bwd_in[mode]
         n, d = x_.shape
         m = z_.shape[0]
-        got, same = repeat(lambda: fused_gram.gram_bwd(*bwd_in[mode]), f"gram_bwd {mode}")
+        got, same = _repeat(lambda: fused_gram.gram_bwd(*bwd_in[mode]), f"{tag} {mode}")
         pbuf = fused_gram._params_buffer(params, x_.device)
         want = fused_gram.gram_bwd_plain(x_, z_, C, fam, pbuf, sym, mode)
         Ct = C.T if mode == "transpose" else (C + C.T if mode == "sym" else C)
         _, dg, _ = fused_gram._map_vjp(fam, fused_gram._sqdist_plain(x_, z_, sym), pbuf)
-        mag = xbar_mag(Ct * dg, x_, z_, 2.0)
+        mag = _xbar_mag(Ct * dg, x_, z_, 2.0)
         del Ct, dg
         # (x̄, p̄) → compare as (p̄, x̄)
-        err, ok = compare(f"gram_bwd {mode}", got[::-1], want[::-1], mag, m, [n, m, d])
+        err, ok = _bwd_compare(f"{tag} {mode}", got[::-1], want[::-1], mag, m, [n, m, d])
         plain = cuda_ms(lambda: fused_gram.gram_bwd_plain(x_, z_, C, fam, pbuf, sym, mode), 3)
-        modes[mode] = record(f"gram_bwd {mode}", err, ok and same,
-                             lambda: fused_gram.gram_bwd(*bwd_in[mode]), plain,
-                             4.0 * (n * m + (2 * n + m) * d),
-                             sweep_flops(n, m, d, fam, sym, int(sym), 1), [n, m, d])
+        modes[mode] = _bwd_record(f"{tag} {mode}", err, ok and same,
+                                  lambda: fused_gram.gram_bwd(*bwd_in[mode]), plain,
+                                  4.0 * (n * m + (2 * n + m) * d),
+                                  sweep_flops(n, m, d, fam, sym, int(sym), 1), [n, m, d])
     total = {k: (None if any(r[k] is None for r in modes.values())
                  else sum(r[k] for r in modes.values()))
              for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
-    recs["gram_bwd"] = dict(total, max_abs_err=max(r["max_abs_err"] for r in modes.values()),
-                            library_ms=None, bound_by="bytes"
-                            if all(r["bound_by"] == "bytes" for r in modes.values())
-                            else "operations",
-                            ok=all(r["ok"] for r in modes.values()), modes=modes)
-    return recs
+    return dict(total, max_abs_err=max(r["max_abs_err"] for r in modes.values()),
+                library_ms=None, bound_by="bytes"
+                if all(r["bound_by"] == "bytes" for r in modes.values()) else "operations",
+                ok=all(r["ok"] for r in modes.values()) and len(modes) == 3, modes=modes)
 
 
 class capture_first_input:
@@ -930,47 +957,82 @@ class OneStepTo:
         return torch.zeros(q.shape[0], dtype=q.dtype, device=q.device)
 
 
-def hyper_kernel_checks(captured):
-    """Kernels 1, 2, 4 and 5 against their plain versions on the inputs of
-    the first ∇logpdf of hyperparameter NUTS (``captured``: name → first
-    call's arguments). Tolerances as in ``kernel_checks``, κ of the slab and
-    of the diagonal blocks in f64."""
+# the largest |dg/d(d²)| of the isotropic maps the sparse paths run (σ² is
+# applied outside the gram kernel): SE 0.5, Matérn-3/2 1.5
+GPRIME_MAX = {0: 0.5, 2: 1.5}
+
+
+def gram_tile_tol(x, z, family) -> float:
+    """Tolerance of ``gram_tile`` against its plain version on inputs of any
+    scale: both form d² = ‖x‖² + ‖z‖² − 2x·z in f32 with the sums in another
+    order, so they differ by ≲ 8·eps·(max‖x‖² + max‖z‖²) in d², times the
+    map's largest slope in K."""
+    nx = float((x.double() ** 2).sum(1).max())
+    nz = float((z.double() ** 2).sum(1).max())
+    return 8.0 * EPS32 * (nx + nz) * GPRIME_MAX[family]
+
+
+def forward_kernel_check(name, args, gram_tol=None):
+    """(max_abs_err, tol, shape) of ``gram_tile``, ``slab_factor`` or
+    ``tri_inv_block`` against its plain version on one call's arguments.
+    ``gram_tile``: 3e-5 where ``gram_tol`` says so (inputs in the unit cube,
+    ℓ ≥ 0.8, as ``kernel_checks`` states), else ``gram_tile_tol``; the
+    factor and the inverses at 10·κ·eps of their largest entry, κ of the
+    slab and of the diagonal blocks in f64."""
     import torch
 
     from abstractgps_tpu_torch.ops import blocked_chol, fused_gram
 
-    out = {}
-    x_, z_, fam, params, *_ = captured["gram_tile"]
-    pbuf = fused_gram._params_buffer(params, x_.device)
-    err = float((fused_gram.gram_tile(x_, z_, fam, params)
-                 - fused_gram.gram_tile_plain(x_, z_, fam, pbuf)).abs().max())
-    out["gram_tile"] = (err, 3e-5, list(x_.shape[:1]) + list(z_.shape))
-    S, B = captured["slab_factor"]
-    ev = torch.linalg.eigvalsh(S.double())
-    Lk, Wk = blocked_chol.slab_factor(S, B)
-    Lp, Wp = blocked_chol.slab_factor_plain(S, B)
-    err = max(float((Lk - Lp).abs().max()), float((Wk - Wp).abs().max()))
-    scale = max(float(Lp.abs().max()), float(Wp.abs().max()))
-    out["slab_factor"] = (err, _tol_rel(float(ev[-1] / ev[0])) * scale, [S.shape[0], B])
-    L, B = captured["tri_inv_block"]
+    if name == "gram_tile":
+        x_, z_, fam, params, *rest = args
+        sym = bool(rest[0]) if rest else False
+        pbuf = fused_gram._params_buffer(params, x_.device)
+        err = float((fused_gram.gram_tile(x_, z_, fam, params, sym)
+                     - fused_gram.gram_tile_plain(x_, z_, fam, pbuf, sym)).abs().max())
+        tol = gram_tile_tol(x_, z_, fam) if gram_tol is None else gram_tol
+        return err, tol, list(x_.shape[:1]) + list(z_.shape)
+    if name == "slab_factor":
+        S, B = args
+        ev = torch.linalg.eigvalsh(S.double())
+        Lk, Wk = blocked_chol.slab_factor(S, B)
+        Lp, Wp = blocked_chol.slab_factor_plain(S, B)
+        err = max(float((Lk - Lp).abs().max()), float((Wk - Wp).abs().max()))
+        scale = max(float(Lp.abs().max()), float(Wp.abs().max()))
+        return err, _tol_rel(float(ev[-1] / ev[0])) * scale, [S.shape[0], B]
+    L, B = args
     nb = L.shape[0] // B
     blocks = torch.stack([L[i * B:(i + 1) * B, i * B:(i + 1) * B] for i in range(nb)])
     kb = float(torch.linalg.cond(blocks.double()).max())
     want = blocked_chol.tri_inv_block_plain(L, B)
     err = float((blocked_chol.tri_inv_block(L, B) - want).abs().max())
-    out["tri_inv_block"] = (err, _tol_rel(kb) * float(want.abs().max()), [nb, B, B])
-    recs = backward_kernel_checks(captured["logpdf_contraction"])
-    r = recs["logpdf_contraction"]
-    out["logpdf_contraction"] = (r["max_abs_err"], "x̄ within 2·√n·eps·Σ|terms|, scalars 1e-4",
-                                 r["shape"], r["ok"])
+    return err, _tol_rel(kb) * float(want.abs().max()), [nb, B, B]
+
+
+def report_checks(tag, out):
+    """Print each (error, tolerance, shape[, ok]) of ``out`` under ``tag``;
+    returns name → dict(max_abs_err, shape, ok)."""
     res = {}
     for name, (err, tol, shape, *flag) in out.items():
         ok = flag[0] if flag else err <= tol
-        print(f"[mcmc hyper kernel {name}] shape {shape}: max_abs_err {err:.3e} (tol "
+        print(f"[{tag} kernel {name}] shape {shape}: max_abs_err {err:.3e} (tol "
               f"{tol if isinstance(tol, str) else f'{tol:.3e}'}) {'ok' if ok else 'FAIL'}",
               flush=True)
         res[name] = dict(max_abs_err=err, shape=shape, ok=ok)
     return res
+
+
+def hyper_kernel_checks(captured):
+    """Kernels 1, 2, 4 and 5 against their plain versions on the inputs of
+    the first ∇logpdf of hyperparameter NUTS (``captured``: name → first
+    call's arguments). Tolerances as in ``kernel_checks``, κ of the slab and
+    of the diagonal blocks in f64."""
+    out = {name: forward_kernel_check(name, captured[name], gram_tol=3e-5)
+           for name in ("gram_tile", "slab_factor", "tri_inv_block")}
+    recs = backward_kernel_checks(captured["logpdf_contraction"])
+    r = recs["logpdf_contraction"]
+    out["logpdf_contraction"] = (r["max_abs_err"], "x̄ within 2·√n·eps·Σ|terms|, scalars 1e-4",
+                                 r["shape"], r["ok"])
+    return report_checks("mcmc hyper", out)
 
 
 def run_hyper_nuts(seed, dev):
@@ -1256,6 +1318,508 @@ def run_ess_smc(seed, dev):
     return ess_ok and smc_ok
 
 
+# ---------------------------------------------------------------------------
+# The sparse slice at BASELINE.json config 3: SVGP training, the collapsed
+# VFE/DTC bound and the sparse posterior's updates, streaming conditioning
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 3 ("Sparse VFE GP: 50k points, 512 inducing points,
+# SE-ARD kernel, ELBO optimization"), examples/sparse_vfe_50k.py: n points
+# in D dimensions, M inducing points, the minibatch and Adam's learning rate;
+# 20 joint steps and 5 natural-gradient steps (the example runs 2000), one
+# ∇ at M = 1024, 4096 test points, 2048 new observations, 64 new
+# pseudo-points
+SPARSE = dict(n=50_000, d=8, m=512, batch=2048, lr=3e-2, steps=20, natgrad_steps=5,
+              m_big=1024, test=4096, new_obs=2048, new_z=64)
+# streaming conditioning: 16 extends of 512 into a cache of capacity 8192
+ONLINE = dict(cap=8192, b=512, test=4096, noise=0.1)
+JITTER = 1e-6  # the inducing jitter of svgp_init and of the example's f(z, 1e-6)
+# launches per joint SVGP Adam step at M = 512 (the fused gram's gate is
+# ≥ 512² pairs, so Kzz is on it) and per online extend
+SVGP_STEP_LAUNCHES = {"gram_tile": 2, "gram_bwd": 3}
+ONLINE_EXTEND_LAUNCHES = {"gram_tile": 2, "tri_inv_block": 1}
+# the f32 gradients of the sparse paths chain a factor, its solves and its
+# pullback, each ≲ κ·eps, and sums of thousands of terms: 100·κ·eps of each
+# leaf's largest entry (CPU f32 runs of the same shapes erred ≲ 5·κ·eps)
+GRAD_KAPPA_FACTOR = 100.0
+
+
+def _sym_key(args):
+    """``gram_tile``'s ``symmetric`` flag, the key of its captured calls."""
+    return bool(args[4]) if len(args) > 4 else False
+
+
+def sparse_data(seed, dev, n, d):
+    """The data of ``examples/sparse_vfe_50k.py``, drawn on the card from
+    ``seed``: x ~ U[0, 4]^D, f = sin(x)·w + 0.3·cos(2x₀) with w_k = e^{−k/2},
+    y = f + 0.2·ε. Returns (x, y, the generator)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((n, d), generator=gen, device=dev) * 4.0
+    w = torch.exp(-torch.arange(d, device=dev, dtype=torch.float32) / 2.0)
+    f = torch.sin(x) @ w + 0.3 * torch.cos(2.0 * x[:, 0])
+    return x, f + 0.2 * torch.randn(n, generator=gen, device=dev), gen
+
+
+def ard_kernel(s2, ard):
+    """σ²·SE ∘ ARDTransform(1/ℓ), the example's kernel."""
+    import abstractgps_tpu_torch as agt
+
+    return agt.compose(agt.SqExponentialKernel(), agt.ARDTransform(1.0 / ard)) * s2
+
+
+def se_ard_f64(a, b, s2, ard):
+    """σ²·exp(−½‖(a − b)/ℓ‖²) in f64 from ``torch.cdist``, written apart from
+    the port."""
+    import torch
+
+    return s2 * torch.exp(-0.5 * torch.cdist(a.double() / ard, b.double() / ard).square())
+
+
+def _softplus64(v):
+    import torch
+
+    return torch.logaddexp(v, torch.zeros_like(v))
+
+
+def svgp_elbo_f64(s2, ard, noise, z, m, c_raw, xb, yb, n_total):
+    """The uncollapsed SVGP ELBO in f64 on the card, written apart from the
+    port: dense Kzz, its Cholesky, A = Lz⁻¹Kzx, q(ε) = N(m, CCᵀ)."""
+    import torch
+
+    M = z.shape[0]
+    eye = torch.eye(M, dtype=torch.float64, device=z.device)
+    Lz = torch.linalg.cholesky(se_ard_f64(z, z, s2, ard) + JITTER * eye)
+    A = torch.linalg.solve_triangular(Lz, se_ard_f64(z, xb, s2, ard), upper=False)
+    C = torch.tril(c_raw, -1) + torch.diag(_softplus64(torch.diagonal(c_raw)))
+    mu = A.T @ m
+    CtA = C.T @ A
+    var = torch.clamp(s2 - (A * A).sum(0) + (CtA * CtA).sum(0), min=0.0)
+    ell = (-0.5 * (torch.log(2.0 * math.pi * noise) + (yb.double() - mu) ** 2 / noise)
+           - var / (2.0 * noise))
+    kl = 0.5 * ((C * C).sum() + m @ m - M - 2.0 * torch.log(torch.diagonal(C)).sum())
+    return n_total / xb.shape[0] * ell.sum() - kl
+
+
+def vfe_f64(s2, ard, noise, z, x, y, xt=None):
+    """Titsias's collapsed bound in f64 on the card, written apart from the
+    port, from A = Lz⁻¹Kzx/σ and Λ = I + AAᵀ:
+    log N(y; 0, Qff + σ²I) = −½(n log 2π + n log σ² + log|Λ| + (‖y‖² −
+    ‖L_Λ⁻¹Ay‖²)/σ²) is the DTC objective, the ELBO subtracts
+    (n·σ² − σ²‖A‖²_F)/(2σ²). Returns (elbo, dtc, κ(Kzz + jitter), κ(Λ)) and,
+    with ``xt``, the VFE posterior's mean and variance there."""
+    import torch
+
+    M, n = z.shape[0], x.shape[0]
+    eye = torch.eye(M, dtype=torch.float64, device=z.device)
+    Kzz = se_ard_f64(z, z, s2, ard) + JITTER * eye
+    Lz = torch.linalg.cholesky(Kzz)
+    sig = torch.sqrt(noise)
+    A = torch.linalg.solve_triangular(Lz, se_ard_f64(z, x, s2, ard), upper=False) / sig
+    Lam = eye + A @ A.T
+    LL = torch.linalg.cholesky(Lam)
+    yd = y.double()
+    c = torch.linalg.solve_triangular(LL, (A @ yd)[:, None], upper=False)[:, 0] / sig
+    quad = (yd @ yd) / noise - c @ c
+    dtc = -0.5 * (n * math.log(2 * math.pi) + n * torch.log(noise)
+                  + 2.0 * torch.log(torch.diagonal(LL)).sum() + quad)
+    elbo = dtc - 0.5 * (n * s2 / noise - (A * A).sum())
+    with torch.no_grad():
+        ek, el = torch.linalg.eigvalsh(Kzz), torch.linalg.eigvalsh(Lam)
+        kappas = float(ek[-1] / ek[0]), float(el[-1] / el[0])
+    if xt is None:
+        return elbo, dtc, *kappas
+    with torch.no_grad():
+        As = torch.linalg.solve_triangular(Lz, se_ard_f64(z, xt, s2, ard), upper=False)
+        alpha = torch.cholesky_solve((A @ yd)[:, None] / sig, LL)[:, 0]
+        mean = As.T @ alpha
+        V = torch.linalg.solve_triangular(LL, As, upper=False)
+        var = torch.clamp(s2 - (As * As).sum(0) + (V * V).sum(0), min=0.0)
+    return elbo, dtc, *kappas, mean, var
+
+
+def leaf_errors(got, want):
+    """Per leaf: max|got − want| / max|want|."""
+    return [float((g.double().cpu() - w.double().cpu()).abs().max()
+                  / w.double().abs().max().cpu()) for g, w in zip(got, want)]
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def run_svgp(seed, dev):
+    """[svgp]: 20 joint Adam steps of the example's loss (σ², the ARD
+    lengthscales, the noise, z, m and C_raw from a constrained tree, the
+    SVGP rebuilt from it each step) through ``fit``, at the full width of
+    config 3; 5 ``fit_svgp_natgrad`` steps; one ∇ of the ELBO at
+    M = 1024 against f64. Returns (ok, the fitted constrained tree, launches
+    by run, the kernels' checks by name)."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    import abstractgps_tpu_torch.params as P
+
+    c = SPARSE
+    n, d, M, B = c["n"], c["d"], c["m"], c["batch"]
+    x, y, gen = sparse_data(seed + 40, dev, n, d)
+    z0 = x[torch.randperm(n, generator=gen, device=dev)[:M]].clone()
+    template = agt.svgp_init(agt.SqExponentialKernel(), z0)
+    theta0 = {"s2": P.positive(torch.tensor(1.0, device=dev)),
+              "ard": P.positive(torch.ones(d, device=dev)),
+              "noise2": P.positive(torch.tensor(0.1, device=dev)),
+              "z": z0, "m": template.m, "C_raw": template.C_raw}
+
+    def build(cc):
+        return template.replace(kernel=ard_kernel(cc["s2"], cc["ard"]), z=cc["z"], m=cc["m"],
+                                C_raw=cc["C_raw"])
+
+    marks = []  # (launches, host time) at the start of each step's loss
+
+    def loss(raw):
+        marks.append((read_launches(), time.perf_counter()))
+        idx = torch.randint(0, n, (B,), generator=gen, device=dev)
+        cc = P.constrain(raw)
+        return -agt.svgp_elbo(build(cc), x[idx], y[idx], cc["noise2"], n_total=n)
+
+    ok = True
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = agt.fit(loss, theta0, num_steps=c["steps"], learning_rate=c["lr"])
+    elbo = (-res.history).double().cpu()
+    t1 = time.perf_counter()
+    marks.append((read_launches(), t1))
+    per_step = [_diff(marks[i + 1][0], marks[i][0]) for i in range(c["steps"])]
+    want = {k: SVGP_STEP_LAUNCHES.get(k, 0) for k in per_step[0]}
+    steps_ok = all(s == want for s in per_step)
+    fit_launches = marks[-1][0]
+    warm = (c["steps"] - 1) / (t1 - marks[1][1])
+    fit_ok = bool(torch.isfinite(elbo).all()) and steps_ok
+    print(f"[svgp] n={n} D={d} M={M} B={B} f32, Adam lr {c['lr']}: {c['steps']} joint steps "
+          f"in {t1 - t0:.3f} s ({c['steps'] / (t1 - t0):.3f} steps/s; steps 2-{c['steps']} "
+          f"{warm:.3f} steps/s); minibatch ELBO first {float(elbo[0]):.3f} last "
+          f"{float(elbo[-1]):.3f}; launches per step {json.dumps(per_step[0])} (predicted "
+          f"{json.dumps(SVGP_STEP_LAUNCHES)}, every step as predicted: {steps_ok}); "
+          f"{'ok' if fit_ok else 'FAIL'}", flush=True)
+    ok = ok and fit_ok
+    # the kernels on the inputs of one more step's forward and backward at
+    # the fitted tree (at the first step q(ε) is the prior, where the gram
+    # cotangents vanish)
+    with capture_first_input("gram_tile", "fused_gram", key=_sym_key) as c1, \
+            capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as c6:
+        torch.autograd.grad(loss(res.params), P.leaves(res.params))
+    checks = {name: forward_kernel_check("gram_tile", args)
+              for name, args in (("gram_tile sym", c1.calls.get(True)),
+                                 ("gram_tile cross", c1.calls.get(False))) if args is not None}
+    with torch.no_grad():
+        bwd = gram_bwd_checks(c6.calls, tag="svgp gram_bwd")
+    checks["gram_bwd"] = (bwd["max_abs_err"], "x̄ within 2·√m·eps·Σ|terms|, scalars 1e-4",
+                          {m_: r["shape"] for m_, r in bwd["modes"].items()}, bwd["ok"])
+    fitted = {k: v.detach() for k, v in P.constrain(res.params).items()}
+
+    # natural-gradient steps on q(ε), Adam on z, from the fitted state
+    sv = build(fitted)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, trace = agt.fit_svgp_natgrad(seed + 42, sv, x, y, fitted["noise2"], batch_size=B,
+                                    steps=c["natgrad_steps"])
+    trace = trace.double().cpu()
+    t_ng = time.perf_counter() - t0
+    ng_launches = read_launches()
+    ng_ok = bool(torch.isfinite(trace).all())
+    print(f"[svgp natgrad] {c['natgrad_steps']} fit_svgp_natgrad steps in {t_ng:.3f} s "
+          f"({c['natgrad_steps'] / t_ng:.3f} steps/s); ELBO trace {trace.tolist()}; launches "
+          f"{json.dumps(ng_launches)}; {'ok' if ng_ok else 'FAIL'}", flush=True)
+    ok = ok and ng_ok
+
+    # one ∇ at M = 1024: chol(Kzz) through slab_factor, the whitening solve
+    # through the wide solve; q(ε) away from the prior (at m = 0, C = I the
+    # ELBO does not depend on z)
+    Mb = c["m_big"]
+    g2 = torch.Generator(device=dev).manual_seed(seed + 43)
+    z1 = x[torch.randperm(n, generator=g2, device=dev)[:Mb]]
+    m1 = 0.3 * torch.randn(Mb, generator=g2, device=dev)
+    C1 = (torch.tril(0.02 * torch.randn((Mb, Mb), generator=g2, device=dev), -1)
+          + 0.5 * torch.eye(Mb, device=dev))
+    c_raw1 = agt.models.svgp.set_variational(template, m1, C1).C_raw
+    idx = torch.randint(0, n, (B,), generator=g2, device=dev)
+    vals = [fitted["s2"], fitted["ard"], fitted["noise2"], z1, m1, c_raw1]
+    leaves = [v.detach().clone().requires_grad_() for v in vals]
+    with capture_first_input("slab_factor") as c2, capture_first_input("tri_inv_block") as c4:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        s2, ard, noise, z, mv, cr = leaves
+        sv1 = agt.SVGP(None, ard_kernel(s2, ard), z, mv, cr,
+                       torch.tensor(JITTER, device=dev))
+        val = -agt.svgp_elbo(sv1, x[idx], y[idx], noise, n_total=n)
+        got = torch.autograd.grad(val, leaves)
+        torch.cuda.synchronize()
+        t_big = time.perf_counter() - t0
+        big_launches = read_launches()
+    l64 = [v.detach().double().requires_grad_() for v in vals]
+    val64 = -svgp_elbo_f64(*l64, x[idx], y[idx], n)
+    want = torch.autograd.grad(val64, l64)
+    with torch.no_grad():
+        ev = torch.linalg.eigvalsh(se_ard_f64(z1, z1, l64[0], l64[1])
+                                   + JITTER * torch.eye(Mb, dtype=torch.float64, device=dev))
+    kappa = float(ev[-1] / ev[0])
+    tol = GRAD_KAPPA_FACTOR * kappa * EPS32
+    errs = leaf_errors(got, want)
+    val_err = abs(float(val.detach()) - float(val64.detach())) / abs(float(val64.detach()))
+    big_ok = (all(e <= tol for e in errs) and val_err <= _tol_rel(kappa)
+              and big_launches["slab_factor"] > 0)
+    names = ("s2", "ard", "noise", "z", "m", "C_raw")
+    print(f"[svgp M={Mb}] ∇ of the minibatch ELBO in {t_big * 1e3:.3f} ms: -ELBO "
+          f"{float(val.detach()):.4f} (f64 {float(val64.detach()):.4f}, rel error "
+          f"{val_err:.3e}, tol {_tol_rel(kappa):.3e}); kappa(Kzz + jitter) {kappa:.3e}; "
+          f"gradient error / max|∇| by leaf {json.dumps(dict(zip(names, errs)))}, tol "
+          f"{tol:.3e}; launches {json.dumps(big_launches)}; {'ok' if big_ok else 'FAIL'}",
+          flush=True)
+    ok = ok and big_ok
+    for name, cap in (("slab_factor", c2), ("tri_inv_block", c4)):
+        if cap.value is not None:
+            checks[name] = forward_kernel_check(name, cap.calls[None])
+    checks = report_checks("svgp", checks)
+    ok = ok and all(r["ok"] for r in checks.values())
+    profile_breakdown("svgp step", lambda: torch.autograd.grad(
+        loss(res.params), P.leaves(res.params)), top=8)
+    runs = {"svgp fit": fit_launches, "svgp natgrad": ng_launches, f"svgp M={Mb}": big_launches}
+    return ok, fitted, runs, checks
+
+
+def run_sparse(seed, dev, fitted):
+    """[sparse]: the collapsed bound ``elbo(VFE(f(z, 1e-6)), f(x, σ²), y)``
+    on all 50 000 points at [svgp]'s fitted σ², ARD, noise and z, and its
+    gradient with respect to them, against ``vfe_f64``; the DTC objective;
+    ``posterior(VFE)`` with ``mean_and_var`` at 4096 test points; both
+    ``update_posterior`` paths against the batch posterior. Returns (ok,
+    launches by run, the kernels' checks by name)."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+
+    c = SPARSE
+    n, d = c["n"], c["d"]
+    x, y, gen = sparse_data(seed + 40, dev, n, d)
+    vals = [fitted["s2"], fitted["ard"], fitted["noise2"], fitted["z"]]
+    leaves = [v.detach().clone().requires_grad_() for v in vals]
+    s2, ard, noise, z = leaves
+
+    def collapsed(kind="elbo"):
+        f = agt.GP(ard_kernel(s2, ard))
+        approx = (agt.VFE if kind == "elbo" else agt.DTC)(f(z, JITTER))
+        return agt.approx_log_evidence(approx, f(x, noise), y)
+
+    ok = True
+    with capture_first_input("gram_tile", "fused_gram", key=_sym_key) as c1, \
+            capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as c6:
+        torch.cuda.synchronize()
+        reset_launches()
+        e = collapsed()
+        # the backward runs after `precise` has restored the flags: read the
+        # TF32 flag from inside it
+        tf32 = []
+        e.register_hook(lambda g: tf32.append(torch.backends.cuda.matmul.allow_tf32))
+        got = torch.autograd.grad(e, leaves)
+        torch.cuda.synchronize()
+        grad_launches = read_launches()
+    l64 = [v.detach().double().requires_grad_() for v in vals]
+    e64, dtc64, k_zz, k_lam = vfe_f64(*l64, x, y)
+    want = torch.autograd.grad(e64, l64)
+    kappa = max(k_zz, k_lam)
+    errs = leaf_errors(got, want)
+    e_err = abs(float(e.detach()) - float(e64.detach())) / abs(float(e64.detach()))
+    tol_g = GRAD_KAPPA_FACTOR * kappa * EPS32
+    grad_ok = all(g <= tol_g for g in errs) and e_err <= _tol_rel(kappa)
+    print(f"[sparse] collapsed ELBO at n={n} M={z.shape[0]} f32: {float(e.detach()):.4f} (f64 "
+          f"{float(e64.detach()):.4f}, rel error {e_err:.3e}, tol {_tol_rel(kappa):.3e}); "
+          f"kappa(Kzz + jitter) {k_zz:.3e}, kappa(Lambda) {k_lam:.3e}; gradient error / max|∇| "
+          f"by leaf {json.dumps(dict(zip(('s2', 'ard', 'noise', 'z'), errs)))}, tol "
+          f"{tol_g:.3e}; allow_tf32 during the backward {tf32[0]}; launches "
+          f"{json.dumps(grad_launches)}; {'ok' if grad_ok else 'FAIL'}", flush=True)
+    ok = ok and grad_ok and not tf32[0]
+    checks = {name: forward_kernel_check("gram_tile", args)
+              for name, args in (("gram_tile sym", c1.calls.get(True)),
+                                 ("gram_tile cross", c1.calls.get(False))) if args is not None}
+    with torch.no_grad():
+        bwd = gram_bwd_checks(c6.calls, tag="sparse gram_bwd")
+    checks["gram_bwd"] = (bwd["max_abs_err"], "x̄ within 2·√m·eps·Σ|terms|, scalars 1e-4",
+                          {m_: r["shape"] for m_, r in bwd["modes"].items()}, bwd["ok"])
+    checks = report_checks("sparse", checks)
+    ok = ok and all(r["ok"] for r in checks.values())
+
+    times = {}
+
+    def timed(name, fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / reps * 1e3
+        return out
+
+    with torch.no_grad():
+        timed("elbo", lambda: collapsed())
+    timed("elbo grad", lambda: torch.autograd.grad(collapsed(), leaves))
+    with torch.no_grad():
+        dv = timed("dtc", lambda: collapsed("dtc"))
+        d_err = abs(float(dv) - float(dtc64)) / abs(float(dtc64))
+        dtc_ok = d_err <= _tol_rel(kappa)
+        print(f"[sparse] DTC objective {float(dv):.4f} (f64 {float(dtc64):.4f}, rel error "
+              f"{d_err:.3e}, tol {_tol_rel(kappa):.3e}); {'ok' if dtc_ok else 'FAIL'}",
+              flush=True)
+        ok = ok and dtc_ok
+
+        s2_, ard_, noise_, z_ = vals
+        f = agt.GP(ard_kernel(s2_, ard_))
+        vfe = agt.VFE(f(z_, JITTER))
+        xt = torch.rand((c["test"], d), generator=gen, device=dev) * 4.0
+        reset_launches()
+        mu, var = agt.posterior(vfe, f(x, noise_), y).mean_and_var(xt)
+        pred_launches = read_launches()
+        timed("posterior + mean_and_var",
+              lambda: agt.posterior(vfe, f(x, noise_), y).mean_and_var(xt))
+        *_, mu64, var64 = vfe_f64(*[v.double() for v in vals], x, y, xt)
+        errs_p = {"mean": float((mu.double() - mu64).abs().max() / mu64.abs().max()),
+                  "var": float((var.double() - var64).abs().max() / var64.max())}
+        pred_ok = (all(v <= _tol_rel(kappa) for v in errs_p.values())
+                   and bool(torch.isfinite(mu).all()) and float(var.min()) >= 0.0)
+        print(f"[sparse] posterior(VFE).mean_and_var at {c['test']} points against f64: rel "
+              f"errors {json.dumps(errs_p)}, tol {_tol_rel(kappa):.3e}; launches "
+              f"{json.dumps(pred_launches)}; {'ok' if pred_ok else 'FAIL'}", flush=True)
+        ok = ok and pred_ok
+
+        # update_posterior: 2048 new observations, then 64 new pseudo-points,
+        # each against the batch posterior (both f32 through the same code;
+        # κ of the batch's Λ in f64)
+        post = agt.posterior(vfe, f(x, noise_), y)
+        x2 = torch.rand((c["new_obs"], d), generator=gen, device=dev) * 4.0
+        w = torch.exp(-torch.arange(d, device=dev, dtype=torch.float32) / 2.0)
+        y2 = (torch.sin(x2) @ w + 0.3 * torch.cos(2.0 * x2[:, 0])
+              + 0.2 * torch.randn(c["new_obs"], generator=gen, device=dev))
+        z2 = x[torch.randperm(n, generator=gen, device=dev)[:c["new_z"]]]
+        x_all, y_all = torch.cat([x, x2]), torch.cat([y, y2])
+        z_all = torch.cat([z_, z2])
+        cases = (
+            ("new observations", lambda: agt.update_posterior(post, f(x2, noise_), y2),
+             lambda: agt.posterior(vfe, f(x_all, noise_), y_all), z_, x_all, y_all),
+            ("new pseudo-points", lambda: agt.update_posterior(post, f(z2, JITTER)),
+             lambda: agt.posterior(agt.VFE(f(z_all, JITTER)), f(x, noise_), y), z_all, x, y))
+        for name, upd, batch, zz, xx, yy in cases:
+            p_upd = timed(f"update {name}", upd)
+            mu_u, var_u = p_upd.mean_and_var(xt)
+            mu_b, var_b = timed(f"batch {name}", batch).mean_and_var(xt)
+            _, _, kz, kl = vfe_f64(*[v.double() for v in vals[:3]], zz, xx, yy)
+            k = max(kz, kl)
+            e_u = {"mean": float((mu_u - mu_b).abs().max() / mu_b.abs().max()),
+                   "var": float((var_u - var_b).abs().max() / var_b.max())}
+            u_ok = all(v <= _tol_rel(k) for v in e_u.values()) and bool(
+                torch.isfinite(mu_u).all())
+            print(f"[sparse] update_posterior with {name} ({times[f'update {name}']:.3f} ms) "
+                  f"against the batch posterior ({times[f'batch {name}']:.3f} ms): rel errors "
+                  f"{json.dumps(e_u)}, kappa {k:.3e}, tol {_tol_rel(k):.3e}; "
+                  f"{'ok' if u_ok else 'FAIL'}", flush=True)
+            ok = ok and u_ok
+    print(f"[sparse] times (ms, host clock, 3 warm calls each): {json.dumps(times)}",
+          flush=True)
+    profile_breakdown("sparse elbo grad", lambda: torch.autograd.grad(collapsed(), leaves),
+                      top=8)
+    return ok, {"sparse elbo grad": grad_launches, "sparse pred": pred_launches}, checks
+
+
+def run_online(seed, dev, fitted):
+    """[online]: 16 ``online_extend``s of 512 observations into a cache of
+    capacity 8192 under [svgp]'s fitted kernel, ``online_mean_and_var`` at
+    4096 points against the port's exact ``posterior(f(x, 0.1), y)``, then
+    one extend past the capacity, which must poison with NaN. Returns (ok,
+    launches by run, the kernels' checks by name)."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.models import online
+
+    c = ONLINE
+    cap, b, d, noise = c["cap"], c["b"], SPARSE["d"], c["noise"]
+    x, y, gen = sparse_data(seed + 44, dev, cap + b, d)
+    xt = torch.rand((c["test"], d), generator=gen, device=dev) * 4.0
+    f = agt.GP(ard_kernel(fitted["s2"], fitted["ard"]))
+    ok = True
+    with torch.no_grad(), \
+            capture_first_input("gram_tile", "fused_gram", key=_sym_key) as c1, \
+            capture_first_input("tri_inv_block") as c4:
+        st = online.online_init(f, cap, d, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        marks = []
+        t0 = time.perf_counter()
+        for i in range(0, cap, b):
+            marks.append(read_launches())
+            prev = st
+            st = online.online_extend(st, x[i:i + b], y[i:i + b], noise)
+        torch.cuda.synchronize()
+        t_ext = time.perf_counter() - t0
+        marks.append(read_launches())
+        ext_launches = marks[-1]
+        reset_launches()
+        t0 = time.perf_counter()
+        mu, var = online.online_mean_and_var(st, xt)
+        torch.cuda.synchronize()
+        t_pred = time.perf_counter() - t0
+        pred_launches = read_launches()
+        per_ext = [_diff(marks[i + 1], marks[i]) for i in range(len(marks) - 1)]
+        want = {k: ONLINE_EXTEND_LAUNCHES.get(k, 0) for k in per_ext[0]}
+        ext_ok = all(e == want for e in per_ext)
+        mu_b, var_b = agt.posterior(f(x[:cap], noise), y[:cap]).mean_and_var(xt)
+        # κ(K + σ²I) ≤ (λ_max + σ²)/σ², λ_max by power iteration in f64
+        K = se_ard_f64(x[:cap], x[:cap], fitted["s2"].double(), fitted["ard"].double())
+        v = torch.ones(cap, dtype=torch.float64, device=dev)
+        for _ in range(50):
+            v = K @ v
+            v = v / v.norm()
+        kappa = (float(v @ (K @ v)) + noise) * 1.01 / noise
+        del K
+        errs = {"mean": float((mu - mu_b).abs().max() / mu_b.abs().max()),
+                "var": float((var - var_b).abs().max() / var_b.max())}
+        match_ok = (all(e <= _tol_rel(kappa) for e in errs.values())
+                    and bool(torch.isfinite(mu).all()) and ext_ok)
+        print(f"[online] capacity {cap}, {cap // b} extends of {b} in {t_ext * 1e3:.3f} ms "
+              f"({t_ext / (cap // b) * 1e3:.3f} ms per extend); online_mean_and_var at "
+              f"{c['test']} points {t_pred * 1e3:.3f} ms; against posterior(f(x, {noise}), y) "
+              f"at N={cap}: rel errors {json.dumps(errs)}, kappa<= {kappa:.3e}, tol "
+              f"{_tol_rel(kappa):.3e}; launches per extend {json.dumps(per_ext[0])} (predicted "
+              f"{json.dumps(ONLINE_EXTEND_LAUNCHES)}, every extend as predicted: {ext_ok}); "
+              f"prediction launches {json.dumps(pred_launches)}; "
+              f"{'ok' if match_ok else 'FAIL'}", flush=True)
+        ok = ok and match_ok
+        # one extend past the capacity: the write stays inside the buffers
+        # (a device assert would kill the process here), the cache is NaN
+        st2 = online.online_extend(st, x[cap:], y[cap:], noise)
+        mu1, var1 = online.online_mean_and_var(st2, xt)
+        torch.cuda.synchronize()
+        nan_ok = bool(torch.isnan(mu1).all()) and bool(torch.isnan(var1).all())
+        print(f"[online] one extend past the capacity (count {int(st2.count)} > {cap}): every "
+              f"mean and variance NaN {nan_ok}; {'ok' if nan_ok else 'FAIL'}", flush=True)
+        ok = ok and nan_ok
+        checks = {name: forward_kernel_check("gram_tile", args)
+                  for name, args in (("gram_tile sym", c1.calls.get(True)),
+                                     ("gram_tile cross", c1.calls.get(False)))
+                  if args is not None}
+        if c4.value is not None:
+            checks["tri_inv_block"] = forward_kernel_check("tri_inv_block", c4.calls[None])
+        checks = report_checks("online", checks)
+        ok = ok and all(r["ok"] for r in checks.values())
+        # the last extend again (into a cache holding 7680 rows)
+        profile_breakdown("online extend", lambda: online.online_extend(
+            prev, x[cap - b:cap], y[cap - b:cap], noise), top=8)
+    return ok, {"online extends": ext_launches, "online pred": pred_launches}, checks
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1300,6 +1864,18 @@ def main(argv=None) -> int:
     ok = hyper_ok and latent_ok and ess_smc_ok
     print(f"[mcmc] sampler phases took {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
+
+    # ---- the sparse slice at BASELINE.json config 3 ----------------------
+    t0 = time.perf_counter()
+    svgp_ok, fitted, runs_svgp, checks_svgp = run_svgp(args.seed, dev)
+    torch.cuda.empty_cache()
+    sparse_ok, runs_sparse, checks_sparse = run_sparse(args.seed, dev, fitted)
+    torch.cuda.empty_cache()
+    online_ok, runs_online, checks_online = run_online(args.seed, dev, fitted)
+    torch.cuda.empty_cache()
+    ok = ok and svgp_ok and sparse_ok and online_ok
+    print(f"[sparse slice] svgp, sparse and online phases took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # ---- the main path: full width, then the ragged width -----------------
     N, M, D, N_RAGGED, M_RAGGED = 8192, 4096, 8, 4500, 1024
@@ -1364,7 +1940,8 @@ def main(argv=None) -> int:
             "logpdf ragged": ragged_counts["logpdf"], "pred ragged": ragged_counts["pred"],
             "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
             "fit full": counts_fit, "deep grad full": counts_deep,
-            "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper}
+            "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper,
+            **runs_svgp, **runs_sparse, **runs_online}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -1379,7 +1956,11 @@ def main(argv=None) -> int:
                                "logpdf_contraction"),
             "deep fit full": ("gram_tile", "slab_factor", "tri_inv_block",
                               "logpdf_contraction"),
-            "mcmc hyper": HYPER_KERNELS}
+            "mcmc hyper": HYPER_KERNELS,
+            "svgp fit": tuple(SVGP_STEP_LAUNCHES),
+            f"svgp M={SPARSE['m_big']}": ("gram_tile", "slab_factor", "tri_inv_block", "gram_bwd"),
+            "sparse elbo grad": ("gram_tile", "gram_bwd"),
+            "online extends": tuple(ONLINE_EXTEND_LAUNCHES)}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
     missing = {r: ks for r, ks in missing.items() if ks}
     if missing or set(bwd_in.calls) != {"sym", "plain", "transpose"} or not contr_in.calls:
@@ -1480,6 +2061,20 @@ def main(argv=None) -> int:
     profile_breakdown("grad", grad_once, top=14)
     profile_breakdown("pred grad", pred_grad_once, top=14)
 
+    path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online}
+    path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online}
+
+    def sparse_paths(name):
+        # each new path's launches of the kernel (by run) and its checks
+        out = {}
+        for p, p_runs in path_runs.items():
+            counts = {r: c[name] for r, c in p_runs.items() if c.get(name)}
+            chk = {k: {"max_abs_err": v["max_abs_err"], "shape": v["shape"]}
+                   for k, v in path_checks[p].items() if k.split(" ")[0] == name}
+            if counts or chk:
+                out[p] = {"launches": counts, "checks": chk}
+        return out
+
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = recs[name]
@@ -1502,6 +2097,7 @@ def main(argv=None) -> int:
                                "max_abs_err": hyper_checks[name]["max_abs_err"],
                                "shape": hyper_checks[name]["shape"]}}
                if name in hyper_checks else {}),
+            "sparse_paths": sparse_paths(name),
         })
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -544,3 +544,79 @@ def test_set_enabled_false_launches_no_kernel(cuda, gen):
     tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
     assert torch.isfinite(off).all()
     assert float(((on - off).abs() / off.abs()).max()) <= tol
+
+
+def test_svgp_step_on_the_card_runs_gram_tile_and_all_gram_bwd_modes(cuda, gen, monkeypatch):
+    # one joint SVGP step at the widths of the 50k configuration (M = 512,
+    # B = 2048, D = 8): σ²·SE∘ARD, with σ², the ARD lengthscales, the noise,
+    # z, m and C_raw all requiring grad. The forward launches the cross and
+    # the symmetric gram_tile; the backward gram_bwd in the sym (Kzz), plain
+    # (z of the cross gram) and transposed (the ARD-scaled batch) modes. The
+    # gradient against the same step in f64 on the card (library path):
+    # κ(Kzz + jitter) is ~20 here, so f32 rounding of the factor and of the
+    # 2048-term sums stays well inside 1e-3 of each leaf's largest entry
+    m, b, d = 512, 2048, 8
+    x = torch.as_tensor(gen.uniform(size=(b, d)) * 4.0, dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=b), dtype=torch.float32, device=cuda)
+    z0 = gen.uniform(size=(m, d)) * 4.0
+    m0 = 0.3 * gen.normal(size=m)
+    c0 = np.tril(0.02 * gen.normal(size=(m, m)), -1) + 0.5 * np.eye(m)
+    modes = []
+    orig = fused_gram.gram_bwd
+
+    def spy(*a):
+        modes.append(a[6])
+        return orig(*a)
+
+    monkeypatch.setattr(fused_gram, "gram_bwd", spy)
+
+    def grads(dtype):
+        leaves = [torch.tensor(v, dtype=dtype, device=cuda, requires_grad=True)
+                  for v in (1.0, np.ones(d), 0.1, z0, m0, c0)]
+        s2, ard, noise, z, mv, c_raw = leaves
+        kern = agt.compose(agt.SqExponentialKernel(), agt.ARDTransform(1.0 / ard)) * s2
+        sv = agt.SVGP(None, kern, z, mv, c_raw, torch.tensor(1e-6, dtype=dtype, device=cuda))
+        loss = -agt.svgp_elbo(sv, x.to(dtype), y.to(dtype), noise, n_total=50_000)
+        return [g.double() for g in torch.autograd.grad(loss, leaves)]
+
+    cuda_ops.reset_launches()
+    got = grads(torch.float32)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["gram_tile"] == 2 and cuda_ops.LAUNCHES["gram_bwd"] == 3
+    assert sorted(modes) == ["plain", "sym", "transpose"]
+    want = grads(torch.float64)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close(g, w, rel=1e-3)
+
+
+def test_online_extend_past_capacity_returns_nan_on_the_card(cuda, gen):
+    # a cache of capacity 2048 filled by 4 extends of 512 (gram_tile and the
+    # wide solve's tri_inv_block on the card), held against batch
+    # conditioning within 10·κ·eps, κ ≤ (n + 0.1)/0.1; then one extend past
+    # the capacity: the write stays inside the buffers (no device assert)
+    # and every later mean and variance is NaN
+    from abstractgps_tpu_torch.models import online
+
+    cap, b, d = 2048, 512, 8
+    x = torch.as_tensor(gen.uniform(size=(cap + b, d)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=cap + b), dtype=torch.float32, device=cuda)
+    xt = torch.as_tensor(gen.uniform(size=(1024, d)), dtype=torch.float32, device=cuda)
+    f = agt.GP(agt.SEKernel())
+    st = online.online_init(f, cap, d, dtype=torch.float32, device=cuda)
+    cuda_ops.reset_launches()
+    for i in range(0, cap, b):
+        st = online.online_extend(st, x[i:i + b], y[i:i + b], 0.1)
+    mu, var = online.online_mean_and_var(st, xt)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["gram_tile"] > 0 and cuda_ops.LAUNCHES["tri_inv_block"] > 0
+    mu_b, var_b = agt.posterior(f(x[:cap], 0.1), y[:cap]).mean_and_var(xt)
+    tol = 10.0 * (cap + 0.1) / 0.1 * EPS32
+    assert torch.isfinite(mu).all() and torch.isfinite(var).all()
+    _close(mu, mu_b, rel=tol)
+    _close(var, var_b, rel=tol)
+    st = online.online_extend(st, x[cap:], y[cap:], 0.1)
+    mu1, var1 = online.online_mean_and_var(st, xt)
+    torch.cuda.synchronize()
+    assert int(st.count) == cap + b
+    assert torch.isnan(mu1).all() and torch.isnan(var1).all()
