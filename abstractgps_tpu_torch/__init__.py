@@ -7,9 +7,12 @@ fitting over tagged parameter trees (``params``, ``fit``, ``fit_lbfgs``);
 the sparse VFE/DTC approximations with online updates and their ELBO
 (``neg_elbo``); the stochastic variational GP (``SVGP``, minibatch Adam
 and natural-gradient training); streaming exact conditioning into a
-fixed-capacity cache (``models.online``); LatentGPs under the likelihoods
-of ``distributions``, and the NUTS, HMC, elliptical-slice and SMC samplers
-of ``inference.mcmc``. Kernels, means and the SVGP state are
+fixed-capacity cache (``models.online``); the matrix-free CG backend
+(``CGInference``, ``cg_logpdf``: batched CG, SLQ logdets, the BBMM
+gradient) and pathwise posterior sampling with random Fourier features
+(``pathwise_sample``); LatentGPs under the likelihoods of
+``distributions``, and the NUTS, HMC, elliptical-slice and SMC samplers of
+``inference.mcmc``. Kernels, means and the SVGP state are
 ``nn.Module``s; the other models and the ops are plain classes and
 functions on tensors. At size on the card (f32) the hot path runs
 hand-written CUDA kernels (``csrc/``): the fused gram tile, the slab and
@@ -24,6 +27,8 @@ Tensors keep their device; other inputs go to the default device
 
 from . import distributions, inference, kernels, ops, params, utils  # noqa: F401
 from .convert import (
+    cg_posterior_from_numpy,
+    fourier_features_from_numpy,
     kernel_from_numpy,
     mean_from_numpy,
     noise_from_numpy,
@@ -56,7 +61,14 @@ from .models.finite_gp import (
     sqmahal,
 )
 from .models.gp import AbstractGP, GP, cov, mean, mean_and_cov, mean_and_var, var
+from .models.iterative import CGInference, CGPosteriorGP, cg_logpdf, mbcg, slq_logdet
 from .models.latent_gp import LatentFiniteGP, LatentGP
+from .models.pathwise import (
+    FourierFeatures,
+    pathwise_sample,
+    prior_function_sample,
+    sample_fourier_features,
+)
 from .models.sparse import (
     DTC,
     VFE,
@@ -98,7 +110,8 @@ __version__ = "0.1.0"
 
 def posterior(*args):
     """``posterior(fx, y)`` → exact PosteriorGP; ``posterior(approx, fx,
-    y)`` dispatches on the approximation (``ExactInference()``)."""
+    y)`` dispatches on the approximation (``ExactInference()``, ``VFE``,
+    ``DTC``, ``CGInference()``)."""
     if len(args) == 2:
         fx, y = args
         return _exact.posterior(fx, y)

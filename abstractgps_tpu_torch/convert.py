@@ -22,10 +22,12 @@ A tagged parameter tree (``params``) is carried across by
 lo, "hi": hi}``, ``{"type": "Fixed", "val": v}`` or plain arrays.
 
 Model states are carried across by ``svgp_from_numpy`` (an ``SVGP``'s
-kernel and mean descriptions and its z, m, C_raw and jitter arrays) and
-``online_from_numpy`` (an ``OnlineGP`` cache of a GP prior). A sparse
-posterior carries nothing beyond its kernel, noise and inducing inputs,
-which the converters above cover.
+kernel and mean descriptions and its z, m, C_raw and jitter arrays),
+``online_from_numpy`` (an ``OnlineGP`` cache of a GP prior),
+``cg_posterior_from_numpy`` (a ``CGPosteriorGP``: its prior, cache arrays
+and solver settings) and ``fourier_features_from_numpy`` (the random
+features of a pathwise sample). A sparse posterior carries nothing beyond
+its kernel, noise and inducing inputs, which the converters above cover.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from .ops.distance import resolve_device
 from .ops.noise import DenseNoise, DiagonalNoise, IsotropicNoise
 
 __all__ = ["kernel_from_numpy", "mean_from_numpy", "noise_from_numpy", "params_from_numpy",
-           "svgp_from_numpy", "online_from_numpy"]
+           "svgp_from_numpy", "online_from_numpy", "cg_posterior_from_numpy",
+           "fourier_features_from_numpy"]
 
 _TRANSFORMS = {
     "ScaleTransform": _base.ScaleTransform,
@@ -62,7 +65,7 @@ def _build(tree, dtype, device):
         parts = [_build(t, dtype, device) for t in fields["kernels"]]
         return getattr(_base, name)(parts)
     if name in _TRANSFORMS:
-        return _TRANSFORMS[name](*(_leaf(v, dtype, device) for v in fields.values()))
+        return _transform(tree, dtype, device)
     if name in ("ScaledKernel", "TransformedKernel"):
         inner = _build(fields["kernel"], dtype, device)
         if name == "ScaledKernel":
@@ -74,6 +77,13 @@ def _build(tree, dtype, device):
     kwargs = {k: (int(v) if k in _INT_FIELDS else _leaf(v, dtype, device))
               for k, v in fields.items()}
     return cls(**kwargs)
+
+
+def _transform(tree, dtype, device):
+    if tree["type"] not in _TRANSFORMS:
+        raise ValueError(f"cannot carry across {tree['type']!r}")
+    return _TRANSFORMS[tree["type"]](*(_leaf(v, dtype, device)
+                                       for k, v in tree.items() if k != "type"))
 
 
 def kernel_from_numpy(tree: dict, device=None, dtype=torch.float64) -> _base.Kernel:
@@ -141,11 +151,52 @@ def online_from_numpy(tree: dict, device=None, dtype=torch.float64):
     """The port's ``OnlineGP`` for ``{"prior": {"kernel": k, "mean": mu},
     "L": L, "alpha": a, "delta": d, "x": x, "count": c}``: the prior a
     ``GP(mean, kernel)``, the cache numpy arrays, ``count`` an integer."""
-    from .models.gp import GP
     from .models.online import OnlineGP
 
     device = resolve_device(device)
-    prior = GP(mean_from_numpy(tree["prior"]["mean"], device, dtype),
-               kernel_from_numpy(tree["prior"]["kernel"], device, dtype))
+    prior = _gp_prior(tree["prior"], device, dtype)
     return OnlineGP(prior, *(_leaf(tree[k], dtype, device) for k in ("L", "alpha", "delta", "x")),
                     torch.tensor(int(tree["count"]), dtype=torch.int64, device=device))
+
+
+def _gp_prior(tree: dict, device, dtype):
+    from .models.gp import GP
+
+    return GP(mean_from_numpy(tree["mean"], device, dtype),
+              kernel_from_numpy(tree["kernel"], device, dtype))
+
+
+def cg_posterior_from_numpy(tree: dict, device=None, dtype=torch.float64):
+    """The port's ``CGPosteriorGP`` for ``{"prior": {"kernel": k, "mean": mu},
+    "x": x, "noise_diag": nd, "alpha": a, "Lk": L or None, "max_iters": t,
+    "tol": tol or None, "panel": p, "max_dense_n": n, "precond_rank": r}``:
+    the arrays numpy, the settings plain numbers."""
+    from .models.iterative import CGPosteriorGP
+
+    device = resolve_device(device)
+    arrays = {k: None if tree[k] is None else _leaf(tree[k], dtype, device)
+              for k in ("x", "noise_diag", "alpha", "Lk")}
+    tol = tree["tol"]
+    return CGPosteriorGP(
+        prior=_gp_prior(tree["prior"], device, dtype), **arrays,
+        max_iters=int(tree["max_iters"]), tol=None if tol is None else float(tol),
+        panel=int(tree["panel"]), max_dense_n=int(tree["max_dense_n"]),
+        precond_rank=int(tree["precond_rank"]))
+
+
+def fourier_features_from_numpy(tree: dict, device=None, dtype=torch.float64):
+    """The port's random-feature map for ``{"omega": w, "bias": b, "weights":
+    a, "transforms": [t, ...]}`` (a ``FourierFeatures``) or ``{"blocks":
+    [...], "transforms": [t, ...]}`` (the per-addend concatenation of a sum
+    kernel): the arrays numpy, each transform a Scale/ARD/Linear
+    description as ``kernel_from_numpy`` takes them."""
+    from .models import pathwise
+
+    device = resolve_device(device)
+    transforms = tuple(_transform(t, dtype, device) for t in tree["transforms"])
+    if "blocks" in tree:
+        return pathwise._ConcatFeatures(
+            tuple(fourier_features_from_numpy(b, device, dtype) for b in tree["blocks"]),
+            transforms)
+    return pathwise.FourierFeatures(*(_leaf(tree[k], dtype, device)
+                                      for k in ("omega", "bias", "weights")), transforms)

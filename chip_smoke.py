@@ -29,6 +29,17 @@ batch posterior (``[sparse]``); 16 streaming extends of 512 into a cache
 of capacity 8192 against the exact posterior, and one past the capacity,
 which must give NaN (``[online]``); each with its launches per step or
 extend and its kernels against their plain versions on its own inputs.
+Then the matrix-free CG backend at N = 32 768 (D = 8, σ²·Matérn-3/2,
+σ² = ℓ = 1, noise 0.1, ``CGInference()``'s defaults: 32 panels of 1024
+rows a matvec): ``approx_log_evidence``, its gradient in (σ², ℓ, noise),
+the posterior, ``mean`` at 4096 points and ``mean_and_var`` at 256, each
+with its launches, host times and the steps its CG columns stayed active,
+against a dense f64 oracle (true residuals, the SLQ logdet in standard
+errors of its probes, the ∇ in its spread over four probe seeds, the
+posterior within CG's A-norm bound), again with the fused gram switched
+off (``[cg]``); and 1024 pathwise samples of the full-width exact
+posterior at 4096 points, their moments against the f64 posterior
+(``[pathwise]``).
 Checks values and gradients against f64 ``torch.linalg`` oracles on the
 card, holds each hand-written kernel against its plain torch version at
 the shapes the main path gives it (the backward kernels also bit for bit
@@ -1820,6 +1831,463 @@ def run_online(seed, dev, fitted):
     return ok, {"online extends": ext_launches, "online pred": pred_launches}, checks
 
 
+# ---------------------------------------------------------------------------
+# The matrix-free CG backend at N = 32 768 and pathwise sampling at full width
+# ---------------------------------------------------------------------------
+
+# [cg]: N = 32 768 (four times the exact path's width, past max_dense_n =
+# 8192: a matvec rebuilds 32 panels of 1024 rows), D = 8, σ²·Matérn-3/2 with
+# ℓ, σ² = ℓ = 1, noise 0.1, f32, ``CGInference()``'s defaults (32 probes,
+# 256 steps, rank-64 preconditioner, probe seed 0); the posterior mean at
+# 4096 points and ``mean_and_var`` at 256; the ∇'s spread over 4 probe seeds
+CG = dict(n=32768, d=8, m_mean=4096, m_var=256, noise=0.1, seeds=4)
+CG_KERNELS = ("gram_tile", "gram_bwd")
+# [pathwise]: the exact posterior of the [e2e] data (N = 8192, D = 8), 1024
+# random features, 1024 paths, evaluated at the 4096 test points
+PATHWISE = dict(n=8192, m=4096, d=8, features=1024, samples=1024)
+PATHWISE_KERNELS = ("gram_tile", "slab_factor", "tri_inv_block")
+
+
+class record_calls:
+    """Record ``(args, result)`` of every call of ``module.name`` during a
+    run (the function still runs): what a run computed, for its checks."""
+
+    def __init__(self, module, name):
+        self.mod, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def spy(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.calls.append((args, out))
+            return out
+
+        setattr(self.mod, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def host_ms(fn, reps: int = 3) -> list:
+    """Host-clock ms of ``reps`` calls of ``fn``, each ending in a
+    synchronize (the first, counted run of a path was its warm-up)."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def cg_data(seed, dev):
+    """x ~ U[0,1]^8 and y ~ N(0, 1) from ``seed`` with numpy (the order of
+    bench.py:64-66), then the 4096 test points; f32 on the card."""
+    import numpy as np
+    import torch
+
+    c = CG
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(c["n"], c["d"]))
+    y = rng.normal(size=c["n"])
+    xs = rng.uniform(size=(c["m_mean"], c["d"]))
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (x, y, xs)]
+
+
+def matern32_f64(a, b, s2=1.0, ell=1.0, block=2048):
+    """σ²·Matérn-3/2 between the rows of a and b in f64 from ``torch.cdist``,
+    built in row blocks, written apart from the port."""
+    import torch
+
+    a, b = a.double(), b.double()
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float64, device=a.device)
+    for r0 in range(0, a.shape[0], block):
+        t = math.sqrt(3.0) / ell * torch.cdist(a[r0:r0 + block], b)
+        out[r0:r0 + block] = s2 * (1.0 + t) * torch.exp(-t)
+    return out
+
+
+def cg_oracle_f64(x, y, xs, xs_v, alphas, W, s2=1.0, ell=1.0, noise=0.1):
+    """Dense f64 reference of [cg] on the card, written apart from the port.
+    ``alphas`` (name → α) and ``W`` (the CG solve of ``mean_and_var``
+    against K(x, xs_v)) are the port's f32 iterates: their true residuals.
+    Returns a dict: relative residuals of each α and of W's columns, the
+    logdet and logpdf, α*, the posterior mean at xs and variance at xs_v,
+    the rounding scales of both, κ, and ∇logpdf in (σ², ℓ, noise) from
+    ½(αᵀ ∂K α − tr(A⁻¹ ∂K)), the trace against A⁻¹ = cholesky_inverse."""
+    import torch
+
+    n = x.shape[0]
+    y64 = y.double()
+    out = {}
+    with torch.no_grad():
+        A = matern32_f64(x, x, s2, ell)
+        A.diagonal().add_(noise)
+        v = torch.ones(n, dtype=torch.float64, device=x.device)
+        for _ in range(50):
+            v = A @ v
+            v = v / v.norm()
+        out["kappa"] = float(v @ (A @ v)) * 1.01 / noise
+        out["res"] = {k: float((A @ a.double() - y64).norm() / y64.norm())
+                      for k, a in alphas.items()}
+        out["res_abs_post"] = float((A @ alphas["posterior"].double() - y64).norm())
+        Kv = matern32_f64(x, xs_v, s2, ell)
+        Rw = A @ W.double() - Kv
+        out["res_w"], out["res_w_abs"] = Rw.norm(dim=0) / Kv.norm(dim=0), Rw.norm(dim=0)
+        del Rw
+        L = torch.linalg.cholesky(A)
+        del A
+        out["logdet"] = float(2.0 * torch.log(torch.diagonal(L)).sum())
+        alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+        out["lp"] = -0.5 * (n * math.log(2 * math.pi) + out["logdet"] + float(y64 @ alpha))
+        Km = matern32_f64(x, xs, s2, ell)
+        out["mu"] = Km.T @ alpha
+        out["mu_scale"] = Km.abs().T @ alpha.abs()  # Σ_j |k_ij α*_j|
+        del Km
+        Wv = torch.cholesky_solve(Kv, L)
+        out["var"] = s2 - (Kv * Wv).sum(0)
+        out["var_scale"] = (Kv * Wv).abs().sum(0)
+        del Wv, Kv
+        Ainv = torch.cholesky_inverse(L)
+        del L
+        q = torch.zeros(2, dtype=torch.float64, device=x.device)
+        tr = torch.zeros_like(q)
+        x64 = x.double()
+        for r0 in range(0, n, 2048):
+            t = math.sqrt(3.0) / ell * torch.cdist(x64[r0:r0 + 2048], x64)
+            e = torch.exp(-t)
+            for i, dK in enumerate(((1.0 + t) * e, s2 * t * t * e / ell)):  # ∂/∂σ², ∂/∂ℓ
+                q[i] += alpha[r0:r0 + 2048] @ (dK @ alpha)
+                tr[i] += (Ainv[r0:r0 + 2048] * dK).sum()
+        g_noise = 0.5 * (alpha @ alpha - torch.diagonal(Ainv).sum())
+        out["grad"] = torch.stack([0.5 * (q[0] - tr[0]), 0.5 * (q[1] - tr[1]), g_noise]).cpu()
+        del Ainv
+    return out
+
+
+def run_cg(seed, dev):
+    """[cg]: ``approx_log_evidence(CGInference(), fx, y)``, its
+    ``torch.autograd.grad`` with respect to (σ², ℓ, noise) (caller tensors),
+    ``CGInference().posterior(fx, y)``, ``mean`` at 4096 points and
+    ``mean_and_var`` at 256, at the configuration ``CG``; each counted, then
+    timed over 3 warm calls; the ∇ again at probe seeds 1-3 for its spread;
+    the logpdf again with ``fused_gram.set_enabled(False)``; the kernels
+    against their plain versions on the path's own inputs; checks (a)-(d)
+    against ``cg_oracle_f64``. Returns (ok, launches by run, the kernels'
+    checks by name)."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.models import iterative
+    from abstractgps_tpu_torch.ops import fused_gram
+
+    c = CG
+    n, noise = c["n"], c["noise"]
+    x, y, xs = cg_data(seed + 50, dev)
+    xs_v = xs[:c["m_var"]]
+    theta = caller_theta(1.0, 1.0, dev, torch.float32)  # σ², ℓ, the noise (NOISE = 0.1)
+    inf = agt.CGInference()
+    tol = torch.finfo(torch.float32).eps ** 0.5  # mbcg's default
+
+    def fx_of(th):
+        s2, ell, nz = th
+        return agt.GP(s2 * agt.with_lengthscale(agt.Matern32Kernel(), ell))(x, nz)
+
+    def logpdf():
+        with torch.no_grad():
+            return agt.approx_log_evidence(inf, fx_of([t.detach() for t in theta]), y)
+
+    def grad(probe_seed=0):
+        lp = agt.approx_log_evidence(agt.CGInference(probe_seed=probe_seed), fx_of(theta), y)
+        return torch.stack(torch.autograd.grad(lp, theta)).double().cpu()
+
+    def steps(actives):
+        a = actives.sum(0).cpu()
+        return [int(v) for v in a]
+
+    runs, ok = {}, True
+    # the logpdf: its mbcg (α, the coefficients) and slq_logdet arguments kept
+    with record_calls(iterative, "mbcg") as mb, record_calls(iterative, "slq_logdet") as sq, \
+            capture_first_input("gram_tile", "fused_gram") as c1:
+        torch.cuda.synchronize()
+        reset_launches()
+        lp = logpdf()
+        torch.cuda.synchronize()
+        runs["cg logpdf"] = read_launches()
+    (_, B), (X, (alphas_c, betas_c, actives_c)) = mb.calls[0]
+    alpha_lp = X[:, 0].clone()
+    slq_args = sq.calls[0][0]
+    lp_steps = steps(actives_c)
+    del mb, X
+    # the ∇, its peak memory above what was allocated before it
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as c6:
+        reset_launches()
+        g0 = grad()
+        torch.cuda.synchronize()
+        runs["cg grad"] = read_launches()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    # the posterior, its mean and mean_and_var (W of the last kept)
+    with torch.no_grad():
+        reset_launches()
+        with record_calls(iterative, "mbcg") as mb:
+            post = agt.posterior(inf, fx_of([t.detach() for t in theta]), y)
+            torch.cuda.synchronize()
+        runs["cg posterior"] = read_launches()
+        post_steps = steps(mb.calls[0][1][1][2])
+        reset_launches()
+        mu = post.mean(xs)
+        torch.cuda.synchronize()
+        runs["cg mean"] = read_launches()
+        reset_launches()
+        with record_calls(iterative, "mbcg") as mb:
+            mu_v, var_v = post.mean_and_var(xs_v)
+            torch.cuda.synchronize()
+        runs["cg mean_and_var"] = read_launches()
+        W = mb.calls[0][1][0]
+        mv_steps = steps(mb.calls[0][1][1][2])
+        del mb
+    times = {
+        "logpdf": host_ms(logpdf),
+        "grad": host_ms(grad),
+        "posterior": host_ms(lambda: agt.posterior(inf, fx_of([t.detach() for t in theta]), y)),
+        "mean": host_ms(lambda: post.mean(xs)),
+        "mean_and_var": host_ms(lambda: post.mean_and_var(xs_v)),
+    }
+    probe_steps = lp_steps[1:]
+    panels = -(-n // inf.panel) if n > inf.max_dense_n else "no (dense)"
+    print(f"[cg] N={n} D={c['d']} f32, CGInference() (32 probes, 256 steps, rank-64 "
+          f"preconditioner), {panels} panels a matvec: logpdf {float(lp):.4f}; host ms over 3 "
+          f"warm calls (each ending in a synchronize): "
+          + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in t)}" for k, t in times.items())
+          + f"; peak memory of the ∇ above its inputs {peak_gib:.3f} GiB", flush=True)
+    print(f"[cg] steps each column stayed active (of 256): logpdf data column {lp_steps[0]}, "
+          f"probes min {min(probe_steps)} median {sorted(probe_steps)[len(probe_steps) // 2]} max "
+          f"{max(probe_steps)}; posterior {post_steps[0]}; mean_and_var's 256 columns min "
+          f"{min(mv_steps)} median {sorted(mv_steps)[len(mv_steps) // 2]} max {max(mv_steps)}",
+          flush=True)
+    print(f"[cg] launches: {json.dumps(runs)}", flush=True)
+    # the ∇ at three more probe seeds: the Hutchinson spread of one estimate
+    gs = torch.stack([g0] + [grad(s) for s in range(1, c["seeds"])])
+    # the logpdf with the fused gram switched off (the library path)
+    fused_gram.set_enabled(False)
+    try:
+        with record_calls(iterative, "mbcg") as mb, \
+                record_calls(iterative, "slq_logdet") as sq_off:
+            reset_launches()
+            lp_off = logpdf()
+            torch.cuda.synchronize()
+            runs["cg logpdf set_enabled(False)"] = read_launches()
+        alpha_off = mb.calls[0][1][0][:, 0].clone()
+        off_steps = steps(mb.calls[0][1][1][2])
+        slq_off = sq_off.calls[0][0]
+        del mb
+    finally:
+        fused_gram.set_enabled(True)
+
+    # ---- checks against the dense f64 oracle ----------------------------
+    ref = cg_oracle_f64(x, y, xs, xs_v, {"logpdf": alpha_lp, "posterior": post.alpha,
+                                         "logpdf set_enabled(False)": alpha_off}, W, noise=noise)
+    torch.cuda.empty_cache()
+    y64 = y.double()
+
+    def slq_check(tag, lp_, alpha_, args):
+        # logdet = −2·lp − n·log 2π − δᵀα; per probe, logdet P + its SLQ term
+        a_, b_, act_, nrm = args
+        per = torch.stack([iterative.slq_logdet(a_[:, j:j + 1], b_[:, j:j + 1],
+                                                act_[:, j:j + 1], nrm[j:j + 1])
+                           for j in range(nrm.shape[0])]).double()
+        logdet = -2.0 * float(lp_) - n * math.log(2 * math.pi) - float(y64 @ alpha_.double())
+        per = per - per.mean() + logdet
+        se = float(per.std() / math.sqrt(per.shape[0]))
+        err = abs(logdet - ref["logdet"])
+        res = ref["res"][tag]
+        good = res <= 4 * tol and err <= 4 * se
+        print(f"[cg {tag}] (a) true f64 relative residual of α {res:.3e} (tol 4·tol = "
+              f"{4 * tol:.3e}); (b) SLQ logdet {logdet:.4f} vs f64 {ref['logdet']:.4f}: error "
+              f"{err:.4f}, {err / se:.3f} standard errors (SE {se:.4f} from the {per.shape[0]} "
+              f"per-probe values; limit 4); logpdf {float(lp_):.4f} vs f64 {ref['lp']:.4f}; "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        return good, logdet
+
+    ok_a, logdet_on = slq_check("logpdf", lp, alpha_lp, slq_args)
+    ok_off, logdet_off = slq_check("logpdf set_enabled(False)", lp_off, alpha_off, slq_off)
+    off_launched = {k: v for k, v in runs["cg logpdf set_enabled(False)"].items() if v}
+    print(f"[cg set_enabled(False)] fused off minus on: logpdf {float(lp_off) - float(lp):.4e}, "
+          f"logdet {logdet_off - logdet_on:.4e}, data column active steps {off_steps[0]} vs "
+          f"{lp_steps[0]}; kernels launched {off_launched}", flush=True)
+    ok_off = ok_off and not off_launched
+    # (c) the ∇ against f64, in the spread of one estimate over 4 probe seeds
+    g64 = ref["grad"]
+    sd = gs.std(dim=0)
+    err_g = (g0 - g64).abs()
+    err_mean = (gs.mean(0) - g64).abs()
+    ok_c = bool(torch.isfinite(gs).all()) and bool((err_g <= 4.0 * sd).all())
+    print(f"[cg grad] (c) ∇ (s2, ell, noise) seed 0 {[round(v, 4) for v in g0.tolist()]}, f64 "
+          f"{[round(v, 4) for v in g64.tolist()]}; spread of one estimate over 4 probe seeds "
+          f"{[round(v, 4) for v in sd.tolist()]}; seed-0 error / spread "
+          f"{[round(v, 3) for v in (err_g / sd).tolist()]} (limit 4); error of the 4-seed mean / "
+          f"its standard error {[round(v, 3) for v in (err_mean / (sd / 2.0)).tolist()]}; "
+          f"seed-0 error / the JAX package's 0.05·max(1, |g|) "
+          f"{[round(v, 3) for v in (err_g / (0.05 * g64.abs().clamp_min(1.0))).tolist()]}; "
+          f"{'ok' if ok_c else 'FAIL'}", flush=True)
+    # (d) the posterior: CG's A-norm bound |k*ᵀ(α − α*)| ≤ ‖A^{-1/2}k*‖·‖r‖/√λ_min
+    # with ‖A^{-1/2}k*‖ ≤ σ = 1, λ_min ≥ the noise and r the measured true
+    # residual (of α for the mean, of W's column for each variance), plus
+    # f32 rounding of the N-term sums at 8·√N·eps·Σ|terms| (the dot
+    # product's and its gram entries' rounding, probabilistic bound)
+    rnd = 8.0 * math.sqrt(n) * EPS32
+    tol_mu = ref["res_abs_post"] / math.sqrt(noise) + rnd * ref["mu_scale"]
+    tol_var = ref["res_w_abs"] / math.sqrt(noise) + rnd * ref["var_scale"]
+    e_mu = (mu.double() - ref["mu"]).abs()
+    e_mu_v = (mu_v.double() - ref["mu"][:c["m_var"]]).abs()
+    e_var = (var_v.double() - ref["var"]).abs()
+    ok_d = (bool(torch.isfinite(mu).all()) and bool(torch.isfinite(var_v).all())
+            and bool((e_mu <= tol_mu).all()) and bool((e_var <= tol_var).all())
+            and bool((e_mu_v <= tol_mu[:c["m_var"]]).all())
+            and mu.shape == (c["m_mean"],) and var_v.shape == (c["m_var"],))
+    print(f"[cg posterior] (a) true f64 relative residual of α {ref['res']['posterior']:.3e}, of "
+          f"mean_and_var's 256 columns max {float(ref['res_w'].max()):.3e} (tol 4·tol = "
+          f"{4 * tol:.3e}); (d) mean at {c['m_mean']} points: max error {float(e_mu.max()):.3e}, "
+          f"largest error / tolerance {float((e_mu / tol_mu).max()):.3e} (tolerance median "
+          f"{float(tol_mu.median()):.3e}, max|mean| {float(ref['mu'].abs().max()):.3e}); variance "
+          f"at {c['m_var']}: max error {float(e_var.max()):.3e}, largest error / tolerance "
+          f"{float((e_var / tol_var).max()):.3e} (tolerance median {float(tol_var.median()):.3e}, "
+          f"var range {float(ref['var'].min()):.3e}..{float(ref['var'].max()):.3e}); kappa<= "
+          f"{ref['kappa']:.3e}; {'ok' if ok_d else 'FAIL'}", flush=True)
+    ok_res = ref["res"]["posterior"] <= 4 * tol and float(ref["res_w"].max()) <= 4 * tol
+    ok = ok and ok_a and ok_off and ok_c and ok_d and ok_res
+    # the kernels on the path's own inputs
+    pargs = c1.calls[None]
+    checks = report_checks("cg", {"gram_tile cg panel": forward_kernel_check("gram_tile", pargs)})
+    bwd = gram_bwd_checks(c6.calls, tag="cg gram_bwd")
+    for mode, r in bwd["modes"].items():
+        checks[f"gram_bwd {mode}"] = dict(max_abs_err=r["max_abs_err"], shape=r["shape"],
+                                          ok=r["ok"], device_ms=r["device_ms"],
+                                          bound_ms=r["bound_ms"])
+    # bytes: x and z read, the panel written once; operations as kernel_checks counts them
+    rows, cols = pargs[0].shape[0], pargs[1].shape[0]
+    b_, by = bound_ms(4.0 * ((rows + cols) * c["d"] + rows * cols),
+                      rows * cols * (3.0 * c["d"] + 12.0))
+    dev_tile = device_ms(lambda: fused_gram.gram_tile(*pargs))
+    checks["gram_tile cg panel"].update(device_ms=dev_tile, bound_ms=b_)
+    print(f"[kernel gram_tile] cg panel {list(pargs[0].shape[:1]) + list(pargs[1].shape)}: device "
+          f"time per call {_ms(dev_tile)} ms, bound {b_:.4f} ms ({by})", flush=True)
+    ok = ok and all(r["ok"] for r in checks.values())
+    profile_breakdown("cg logpdf", logpdf, top=8)
+    profile_breakdown("cg grad", grad, top=8)
+    return ok, runs, checks
+
+
+def run_pathwise(seed, dev):
+    """[pathwise]: ``pathwise_sample(posterior(f(x, 0.1), y), seed,
+    num_features=1024, num_samples=1024)`` at the [e2e] data (N = 8192,
+    D = 8, f32), its 1024 paths evaluated at the 4096 test points; setup
+    (the exact posterior, the features, the wide solve) and evaluation each
+    counted, then timed over 3 warm calls; the paths' moments at each point
+    against the f64 posterior; the kernels against their plain versions on
+    the path's inputs. Returns (ok, launches by run, the kernels' checks)."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.models import pathwise
+
+    c = PATHWISE
+    n, m, s = c["n"], c["m"], c["samples"]
+    x, y, xs, s2, ell = make_problem(seed, n, m, c["d"], dev, torch.float32)
+    kernel = make_kernel(s2, ell, dev, torch.float32)
+    runs = {}
+
+    def setup():
+        post = agt.posterior(agt.GP(kernel)(x, NOISE), y)
+        return agt.pathwise_sample(post, seed, num_features=c["features"], num_samples=s)
+
+    with torch.no_grad():
+        with capture_first_input("tri_inv_block") as c4, \
+                capture_first_input("gram_tile", "fused_gram",
+                                    key=lambda a: (a[0].shape[0], a[1].shape[0])) as c1, \
+                record_calls(pathwise, "sample_fourier_features") as sf:
+            torch.cuda.synchronize()
+            reset_launches()
+            g = setup()
+            torch.cuda.synchronize()
+            runs["pathwise setup"] = read_launches()
+            reset_launches()
+            S = g(xs)
+            torch.cuda.synchronize()
+            runs["pathwise eval"] = read_launches()
+        phi = sf.calls[0][1]
+        t_setup = host_ms(setup)
+        t_eval = host_ms(lambda: g(xs))
+    print(f"[pathwise] N={n} D={c['d']} f32, {c['features']} features, {s} paths at {m} points: "
+          f"setup ms {', '.join(f'{v:.3f}' for v in t_setup)}; evaluation ms "
+          f"{', '.join(f'{v:.3f}' for v in t_eval)}; launches {json.dumps(runs)}", flush=True)
+    # ---- the paths' moments against the f64 posterior -------------------
+    with torch.no_grad():
+        x64 = x.double()
+        A = matern32_f64(x, x, s2, ell)
+        A.diagonal().add_(NOISE)
+        v_ = torch.ones(n, dtype=torch.float64, device=dev)
+        for _ in range(50):
+            v_ = A @ v_
+            v_ = v_ / v_.norm()
+        kappa = float(v_ @ (A @ v_)) * 1.01 / NOISE
+        L = torch.linalg.cholesky(A)
+        del A
+        Ks = matern32_f64(x, xs, s2, ell)
+        alpha = torch.cholesky_solve(y.double()[:, None], L)[:, 0]
+        Aks = torch.cholesky_solve(Ks, L)  # A⁻¹K(X, x*)
+        mu64 = Ks.T @ alpha
+        var64 = s2 - (Ks * Aks).sum(0)
+        del Ks, L
+
+        def feats(z):
+            # the port's features in f64 from their arrays: the kernel's one
+            # input transform is z/ℓ
+            return torch.cos((z.double() / ell) @ phi.omega.double().T
+                             + phi.bias.double()) * phi.weights.double()
+
+        # RFF truncation: the paths' variance given these features is
+        # Σ_j U_ij² + noise·‖A⁻¹k*‖², U = φ(x*) − (A⁻¹K(X, x*))ᵀφ(X); its
+        # standard error over the m features, std_j(m·U_ij²)/√m
+        U = feats(xs) - Aks.T @ feats(x64)
+        m_f = U.shape[1]
+        se_rff = (m_f * U * U).std(dim=1) / math.sqrt(m_f)
+        del U, Aks
+        S64 = S.double()
+        mean_s, var_s = S64.mean(1), S64.var(1)
+        f32 = 10.0 * kappa * EPS32
+        tol_mean = 5.0 * torch.sqrt(var_s / s) + f32 * float(mu64.abs().max())
+        tol_var = (5.0 * math.sqrt(2.0 / (s - 1)) * var64 + 5.0 * se_rff
+                   + 2.0 * f32 * float(S64.abs().max()) * torch.sqrt(var64))
+        e_mean, e_var = (mean_s - mu64).abs(), (var_s - var64).abs()
+    ok = (S.shape == (m, s) and bool(torch.isfinite(S).all())
+          and bool((e_mean <= tol_mean).all()) and bool((e_var <= tol_var).all()))
+    print(f"[pathwise] moments of the {s} paths at {m} points vs the f64 posterior: mean max "
+          f"error {float(e_mean.max()):.3e}, largest error / tolerance "
+          f"{float((e_mean / tol_mean).max()):.3e} (5 standard errors of the sample mean + "
+          f"10·kappa·eps·max|mean|); variance max error {float(e_var.max()):.3e}, largest error / "
+          f"tolerance {float((e_var / tol_var).max()):.3e} (5·sqrt(2/(s-1))·var + 5 RFF standard "
+          f"errors, median {float(se_rff.median()):.3e}, + f32 2·10·kappa·eps·max|path|·sd); var "
+          f"range {float(var64.min()):.3e}..{float(var64.max()):.3e}; kappa<= {kappa:.3e}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    checks = {"gram_tile cross": forward_kernel_check("gram_tile", c1.calls[(m, n)],
+                                                      gram_tol=3e-5),
+              "tri_inv_block": forward_kernel_check("tri_inv_block", c4.calls[None])}
+    checks = report_checks("pathwise", checks)
+    ok = ok and all(r["ok"] for r in checks.values())
+    with torch.no_grad():
+        profile_breakdown("pathwise setup", setup, top=8)
+        profile_breakdown("pathwise eval", lambda: g(xs), top=6)
+    return ok, runs, checks
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1876,6 +2344,15 @@ def main(argv=None) -> int:
     ok = ok and svgp_ok and sparse_ok and online_ok
     print(f"[sparse slice] svgp, sparse and online phases took {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # ---- the CG backend at N = 32 768, pathwise sampling at N = 8192 -----
+    t0 = time.perf_counter()
+    cg_ok, runs_cg, checks_cg = run_cg(args.seed, dev)
+    torch.cuda.empty_cache()
+    pw_ok, runs_pw, checks_pw = run_pathwise(args.seed, dev)
+    torch.cuda.empty_cache()
+    ok = ok and cg_ok and pw_ok
+    print(f"[cg slice] cg and pathwise phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the main path: full width, then the ragged width -----------------
     N, M, D, N_RAGGED, M_RAGGED = 8192, 4096, 8, 4500, 1024
@@ -1941,7 +2418,7 @@ def main(argv=None) -> int:
             "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
             "fit full": counts_fit, "deep grad full": counts_deep,
             "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper,
-            **runs_svgp, **runs_sparse, **runs_online}
+            **runs_svgp, **runs_sparse, **runs_online, **runs_cg, **runs_pw}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -1960,7 +2437,10 @@ def main(argv=None) -> int:
             "svgp fit": tuple(SVGP_STEP_LAUNCHES),
             f"svgp M={SPARSE['m_big']}": ("gram_tile", "slab_factor", "tri_inv_block", "gram_bwd"),
             "sparse elbo grad": ("gram_tile", "gram_bwd"),
-            "online extends": tuple(ONLINE_EXTEND_LAUNCHES)}
+            "online extends": tuple(ONLINE_EXTEND_LAUNCHES),
+            "cg logpdf": ("gram_tile",), "cg grad": CG_KERNELS, "cg posterior": ("gram_tile",),
+            "cg mean": ("gram_tile",), "cg mean_and_var": ("gram_tile",),
+            "pathwise setup": PATHWISE_KERNELS, "pathwise eval": ("gram_tile",)}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
     missing = {r: ks for r, ks in missing.items() if ks}
     if missing or set(bwd_in.calls) != {"sym", "plain", "transpose"} or not contr_in.calls:
@@ -2061,15 +2541,19 @@ def main(argv=None) -> int:
     profile_breakdown("grad", grad_once, top=14)
     profile_breakdown("pred grad", pred_grad_once, top=14)
 
-    path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online}
-    path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online}
+    path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online,
+                 "cg": runs_cg, "pathwise": runs_pw}
+    path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online,
+                   "cg": checks_cg, "pathwise": checks_pw}
 
-    def sparse_paths(name):
-        # each new path's launches of the kernel (by run) and its checks
+    def slice_paths(name):
+        # each later slice's path: its launches of the kernel (by run) and its
+        # checks (with device and bound ms where timed at the path's shapes)
         out = {}
         for p, p_runs in path_runs.items():
             counts = {r: c[name] for r, c in p_runs.items() if c.get(name)}
-            chk = {k: {"max_abs_err": v["max_abs_err"], "shape": v["shape"]}
+            chk = {k: {f: v[f] for f in ("max_abs_err", "shape", "device_ms", "bound_ms")
+                       if f in v}
                    for k, v in path_checks[p].items() if k.split(" ")[0] == name}
             if counts or chk:
                 out[p] = {"launches": counts, "checks": chk}
@@ -2097,7 +2581,7 @@ def main(argv=None) -> int:
                                "max_abs_err": hyper_checks[name]["max_abs_err"],
                                "shape": hyper_checks[name]["shape"]}}
                if name in hyper_checks else {}),
-            "sparse_paths": sparse_paths(name),
+            "paths": slice_paths(name),
         })
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -71,6 +71,17 @@ def test_svgp_posterior_conformance(data):
     check_internal(gen, agt.svgp_posterior(sv), x, z)
 
 
+def test_cg_posterior_conformance(data):
+    # the matrix-free CG posterior passes the same internal suite as the
+    # dense types (tests/test_conformance.py:76-84)
+    x, z, gen = data
+    f = agt.GP(agt.with_lengthscale(agt.Matern52Kernel(), 0.9))
+    y = f(x, 0.1).rand(gen)
+    post = agt.CGInference(max_iters=64).posterior(f(x, 0.1), y)
+    assert isinstance(post, agt.CGPosteriorGP)
+    check_internal(gen, post, x, z)
+
+
 def test_finite_projection_of_sparse_posterior_conformance(data):
     x, z, gen = data
     f = agt.GP(agt.with_lengthscale(agt.SEKernel(), 0.7))

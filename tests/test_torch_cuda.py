@@ -16,6 +16,7 @@ kernel paths against f64 ``torch.linalg`` oracles on the same card at
 also return the same bits on a second call.
 """
 
+import copy
 import math
 
 import numpy as np
@@ -620,3 +621,81 @@ def test_online_extend_past_capacity_returns_nan_on_the_card(cuda, gen):
     torch.cuda.synchronize()
     assert int(st.count) == cap + b
     assert torch.isnan(mu1).all() and torch.isnan(var1).all()
+
+
+def test_cg_matvec_launches_one_gram_tile_per_panel(cuda, gen):
+    # past max_dense_n the CG matvec rebuilds the gram in 1024-row panels,
+    # one gram_tile launch each (the last one ragged, zero-padded), and
+    # agrees with the dense f64 product to f32 rounding of N-term sums
+    from abstractgps_tpu_torch.ops.matvec import gram_matvec, make_gram_matvec
+
+    n, d = 4196, 8
+    x = torch.as_tensor(gen.uniform(size=(n, d)), dtype=torch.float32, device=cuda)
+    V = torch.as_tensor(gen.normal(size=(n, 5)), dtype=torch.float32, device=cuda)
+    nd = torch.full((n,), 0.1, dtype=torch.float32, device=cuda)
+    k = agt.with_lengthscale(agt.Matern32Kernel(), 0.9).to(device=cuda, dtype=torch.float32)
+    mv = make_gram_matvec(k, x, nd, panel=1024, max_dense_n=1024)
+    cuda_ops.reset_launches()
+    got = mv(V)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["gram_tile"] == 5, cuda_ops.LAUNCHES
+    got_vec = gram_matvec(k, x, nd, V[:, 0], panel=1024)
+    K64 = agt.kernelmatrix(copy.deepcopy(k).double(), x.double())
+    want = K64 @ V.double() + 0.1 * V.double()
+    _close(got.double(), want, rel=1e-4)
+    _close(got_vec.double(), want[:, 0], rel=1e-4)
+
+
+class _ReplayNormals:
+    """Normals drawn once in f64, handed out again in any dtype: the f32 and
+    f64 runs of one CG estimator share their probes."""
+
+    def __init__(self, seed, device):
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.drawn, self.i = [], None
+
+    def normal(self, shape, dtype, device):
+        if self.i is None:
+            self.drawn.append(torch.randn(shape, generator=self.gen, dtype=torch.float64,
+                                          device=device))
+            return self.drawn[-1].to(dtype)
+        self.i += 1
+        return self.drawn[self.i - 1].to(dtype)
+
+    def replay(self):
+        self.i = 0
+
+
+def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
+    # the preconditioned CG logpdf at N = 3000 in 1024-row panels: every CG
+    # step launches one gram_tile a panel, the backward rebuilds each panel
+    # once more and takes its VJP through gram_bwd, plain (the panel's rows)
+    # and transposed (the columns). Value and gradient against the same
+    # estimator (the same probes) in f64 on the card, within 10·κ·eps with
+    # κ ≤ (n·σ² + noise)/noise
+    n, panels, iters = 3000, 3, 60
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
+    modes = []
+    orig = fused_gram.gram_bwd
+    monkeypatch.setattr(fused_gram, "gram_bwd", lambda *a: modes.append(a[6]) or orig(*a))
+    draws = _ReplayNormals(3, cuda)
+
+    def value_and_grad(dtype):
+        th = [torch.tensor(v, dtype=dtype, device=cuda, requires_grad=True)
+              for v in (1.1, 0.9, 0.1)]
+        fx = agt.GP(th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1]))(x.to(dtype), th[2])
+        lp = agt.cg_logpdf(fx, y.to(dtype), draws, num_probes=8, max_iters=iters, panel=1024,
+                           max_dense_n=1024, precond_rank=16)
+        return torch.cat([lp.detach()[None], *[g[None] for g in torch.autograd.grad(lp, th)]])
+
+    cuda_ops.reset_launches()
+    got = value_and_grad(torch.float32)
+    torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["gram_tile"] == panels * (iters + 1), cuda_ops.LAUNCHES
+    assert sorted(modes) == ["plain"] * panels + ["transpose"] * panels
+    draws.replay()
+    want = value_and_grad(torch.float64)
+    assert torch.isfinite(got).all()
+    tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
+    assert float(((got.double() - want).abs() / want.abs()).max()) <= tol

@@ -1,7 +1,8 @@
 """Shared helpers of the tests that hold abstractgps_tpu_torch against the
 JAX package: the JAX-kernel → nested-dict walker (the port cannot import
 JAX, so this lives on the test side), small-size patches of both packages'
-gates, and SPD test matrices."""
+gates, SPD test matrices, and the replay of a JAX call's random draws
+through the port's draws objects."""
 
 import contextlib
 import dataclasses
@@ -107,3 +108,54 @@ def param_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(param_tree(v) for v in tree)
     return np.asarray(tree)
+
+
+_DRAW_KINDS = ("normal", "uniform", "gamma", "rademacher")
+
+
+@contextlib.contextmanager
+def record_jax_draws():
+    """Within the block, every ``jax.random.{normal, uniform, gamma,
+    rademacher}`` call is recorded, in call order, as (kind, numpy array).
+    Run the JAX function eagerly inside (under ``jax.jit`` the draws are
+    tracers). Yields the list."""
+    import jax
+
+    records = []
+    with pytest.MonkeyPatch.context() as mp:
+        for kind in _DRAW_KINDS:
+            orig = getattr(jax.random, kind)
+
+            def rec(*a, _orig=orig, _kind=kind, **k):
+                out = _orig(*a, **k)
+                records.append((_kind, np.asarray(out)))
+                return out
+
+            mp.setattr(jax.random, kind, rec)
+        yield records
+
+
+class JaxDraws:
+    """A draws object (``abstractgps_tpu_torch.ops.draws``) that hands out the
+    recorded JAX draws in order, checking each site's kind and shape, so the
+    port runs the JAX package's estimator on the JAX package's numbers."""
+
+    def __init__(self, records):
+        self.records = list(records)
+
+    def _next(self, kind, shape, dtype, device):
+        got, arr = self.records.pop(0)
+        assert (got, arr.shape) == (kind, tuple(shape)), (got, arr.shape, kind, shape)
+        return torch.as_tensor(np.array(arr), dtype=dtype, device=device)
+
+    def normal(self, shape, dtype, device):
+        return self._next("normal", shape, dtype, device)
+
+    def uniform(self, shape, high, dtype, device):
+        return self._next("uniform", shape, dtype, device)
+
+    def gamma(self, concentration, shape, dtype, device):
+        return self._next("gamma", shape, dtype, device)
+
+    def rademacher(self, shape, dtype, device):
+        return self._next("rademacher", shape, dtype, device)
