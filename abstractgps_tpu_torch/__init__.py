@@ -10,7 +10,9 @@ and natural-gradient training); streaming exact conditioning into a
 fixed-capacity cache (``models.online``); the matrix-free CG backend
 (``CGInference``, ``cg_logpdf``: batched CG, SLQ logdets, the BBMM
 gradient) and pathwise posterior sampling with random Fourier features
-(``pathwise_sample``); LatentGPs under the likelihoods of
+(``pathwise_sample``); the Markov (state-space) backend for Matérn kernels
+on 1-D inputs (``markov_logpdf``, ``markov_posterior``: sequential and
+parallel-in-time Kalman filters, the RTS smoother, FFBS sampling); LatentGPs under the likelihoods of
 ``distributions``, and the NUTS, HMC, elliptical-slice and SMC samplers of
 ``inference.mcmc``. Kernels, means and the SVGP state are
 ``nn.Module``s; the other models and the ops are plain classes and
@@ -63,6 +65,14 @@ from .models.finite_gp import (
 from .models.gp import AbstractGP, GP, cov, mean, mean_and_cov, mean_and_var, var
 from .models.iterative import CGInference, CGPosteriorGP, cg_logpdf, mbcg, slq_logdet
 from .models.latent_gp import LatentFiniteGP, LatentGP
+from .models.markov import (
+    MarkovPosteriorGP,
+    is_markov_kernel,
+    markov_logpdf,
+    markov_mean_and_var,
+    markov_posterior,
+    markov_rand,
+)
 from .models.pathwise import (
     FourierFeatures,
     pathwise_sample,

@@ -1,5 +1,5 @@
 // gram_bwd: the VJP of the fused isotropic gram K = g(d^2(x, z)) against a cotangent C: the row
-// operand's cotangent xbar = 2 (rowsum(w) o x - w z), w = C * dg/dd^2, and the map
+// operand's cotangent xbar_r = 2 sum_c w_rc (x_r - z_c), w = C * dg/dd^2, and the map
 // hyperparameter's bar sum C * dg/dp.
 //
 // Replaces abstractgps_tpu/ops/pallas_gram.py:185 (_bwd_pass, pallas_call at :289), driven by
@@ -9,7 +9,7 @@
 //   2  z is x (symmetric gram, n = m): one sweep over C + C^T gives the total xbar, and the
 //      hyperparameter bar is doubled (the wrapper halves it).
 // Bound on the H100: bytes. It reads C once per pass (n*m*4 bytes; C + C^T reads the n^2
-// cotangent twice) and does ~4D + 15 operations per entry at D = 8, under the FP32 rate for
+// cotangent twice) and does ~6D + 15 operations per entry at D = 8, under the FP32 rate for
 // the bytes moved.
 //
 // Design: the column-split sweep of gram_sweep.cuh (grid of 64-row blocks x S column splits,
@@ -20,7 +20,7 @@
 // transposed tile is read transposed from shared memory. Row strides of 68 floats ([row][col],
 // = 4 mod 32 banks) and 72 ([col][row], = 8 mod 32) keep each warp's reads on distinct banks;
 // mode 2's mirrored tile also takes 68, at a 2-way conflict on its reads, so that three CTAs
-// fit an SM. Shared memory per CTA at D <= 8: 39.4 KB (mode 0), 41.5 KB (mode 1), 74.2 KB
+// fit an SM. Shared memory per CTA at D <= 8: 38.9 KB (mode 0), 41.0 KB (mode 1), 73.7 KB
 // (mode 2).
 #include "gram_sweep.cuh"
 
@@ -64,11 +64,11 @@ struct GramBwdCot {
 
 template <int kMode>
 int launch_mode(const float* x, const float* z, const float* C, long ldc, const float* params,
-                float* xbar, float* znorm, float* part_x, double* part_p, double* pbar, int n,
+                float* xbar, float* part_x, double* part_p, double* pbar, int n,
                 int m, int d, int family, int symmetric, int splits, cudaStream_t stream) {
   const int vec = ldc % 4 == 0 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
   const GramBwdCot<kMode> cot{C, ldc, n, m, vec};
-  return agp::launch_split_sweep(cot, x, z, znorm, params, xbar, part_x, part_p, pbar, n, m, d,
+  return agp::launch_split_sweep(cot, x, z, params, xbar, part_x, part_p, pbar, n, m, d,
                                  family, symmetric, splits, stream);
 }
 
@@ -76,10 +76,10 @@ int launch_mode(const float* x, const float* z, const float* C, long ldc, const 
 
 // x (n, d), z (m, d), C as the mode says with row stride ldc, params: the map's
 // hyperparameter buffer; splits: the column splits S (1 <= S <= column tiles). Scratch:
-// znorm (m) f32, part_x (S, n, d) f32, part_p (row blocks * S) f64. Writes xbar (n, d) whole
+// part_x (S, n, d) f32, part_p (row blocks * S) f64. Writes xbar (n, d) whole
 // and pbar[0] = sum C dg/dp.
 extern "C" int agp_gram_bwd(const float* x, const float* z, const float* C, long ldc,
-                            const float* params, float* xbar, float* znorm, float* part_x,
+                            const float* params, float* xbar, float* part_x,
                             double* part_p, double* pbar, int n, int m, int d, int family,
                             int symmetric, int mode, int splits, cudaStream_t stream) {
   const int tiles = (m + kSweepTile - 1) / kSweepTile;
@@ -87,11 +87,11 @@ extern "C" int agp_gram_bwd(const float* x, const float* z, const float* C, long
       (mode == 2 && n != m) || splits < 1 || splits > tiles)
     return (int)cudaErrorInvalidValue;
   if (mode == 0)
-    return launch_mode<0>(x, z, C, ldc, params, xbar, znorm, part_x, part_p, pbar, n, m, d,
+    return launch_mode<0>(x, z, C, ldc, params, xbar, part_x, part_p, pbar, n, m, d,
                           family, symmetric, splits, stream);
   if (mode == 1)
-    return launch_mode<1>(x, z, C, ldc, params, xbar, znorm, part_x, part_p, pbar, n, m, d,
+    return launch_mode<1>(x, z, C, ldc, params, xbar, part_x, part_p, pbar, n, m, d,
                           family, symmetric, splits, stream);
-  return launch_mode<2>(x, z, C, ldc, params, xbar, znorm, part_x, part_p, pbar, n, m, d,
+  return launch_mode<2>(x, z, C, ldc, params, xbar, part_x, part_p, pbar, n, m, d,
                         family, symmetric, splits, stream);
 }

@@ -1,21 +1,22 @@
 // Isotropic gram maps and their VJPs (agp::apply_map is gram_tile.cu's epilogue), the cp.async
-// helpers and z's row-norm launch of the gram kernels, and the column-split backward sweep that
-// gram_bwd.cu and logpdf_contraction.cu each run with their own cotangent policy.
+// helpers of the gram kernels, and the column-split backward sweep that gram_bwd.cu and
+// logpdf_contraction.cu each run with their own cotangent policy.
 //
 // The column-split sweep: the grid is (row blocks of 64, S column splits, feature chunks); split
 // s walks the contiguous column tiles [s*T/S, (s+1)*T/S) of the T = ceil(m/64) tiles of z. Per
 // 64 x 64 tile the policy's cotangent tile(s) and z's rows are fetched with cp.async into a
 // double buffer, so tile j + 1 loads while tile j is computed. A thread owns one row (its
-// features, |x|^2 and its x-bar accumulators in registers) and 16 of the tile's columns (4
-// threads a row): per entry it rebuilds d^2 = max(|x_r|^2 + |z_c|^2 - 2 x_r.z_c, 0) by FP32 FMA
-// (no TF32: ops/precision.py), applies the closed-form map VJP, and accumulates
+// features and its x-bar accumulators in registers) and 16 of the tile's columns (4 threads a
+// row): per entry it rebuilds d^2 = sum_k (x_rk - z_ck)^2 from the differences by FP32 FMA (no
+// TF32: ops/precision.py; not as |x_r|^2 + |z_c|^2 - 2 x_r.z_c, which cancels to eps |x|^2 where
+// the inputs lie far from the origin, as 1-D time axes do), applies the closed-form map VJP, and
+// accumulates
 //   w = scaled(C_rc) * dg/dd^2              (0 on the diagonal of a symmetric sweep)
-//   rowsum(w) and sum_c w z_c               -> x-bar partial = kXScale (rowsum(w) x_r - w z)
+//   sum_c w (x_r - z_c)                     -> x-bar partial = kXScale sum_c w (x_r - z_c)
 //   sum scaled(C) * dg/dp                   (FP64; RQ alpha, gamma)
 //   sum C * g                               (FP64; only for a policy with kWithG)
 // The instruction rate, not bytes, limits the entry loop, so the entries go in batches of 8 whose
-// passes are unrolled (the family switch once a batch), z's norms come from a small first launch,
-// and the policy is a template parameter (its cotangent read has no branch on a mode). A row
+// passes are unrolled (the family switch once a batch), and the policy is a template parameter (its cotangent read has no branch on a mode). A row
 // keeps KD = 8, 16 or 32 features in registers (zero past d); past 32 the grid's third dimension
 // takes 32-feature chunks, each CTA rebuilding d^2 from all d features through L1 and
 // accumulating the x-bar of its own chunk (untuned). No atomics: each CTA writes its x-bar
@@ -173,17 +174,6 @@ __device__ __forceinline__ void load_row(const float* src, float (&v)[KD]) {
   }
 }
 
-// |z_j|^2 of the column operand's rows, once, for every CTA's tiles (a sequential FMA chain from
-// feature 0, so a row's norm has the same bits wherever it is formed this way)
-static __global__ void column_norms_kernel(const float* __restrict__ z, int m, int d,
-                                           float* __restrict__ znorm) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  float s = 0.f;
-  for (int k = 0; k < d; ++k) s = fmaf(z[(long)j * d + k], z[(long)j * d + k], s);
-  znorm[j] = s;
-}
-
 // ---- the column-split sweep ------------------------------------------------------------------
 
 // the map's VJP at family F for N entries: e holds d^2 and gets dg/dd^2; g, dp get g, dg/dp
@@ -199,10 +189,10 @@ __device__ __forceinline__ void map_vjp_n(float (&e)[N], float p0, float (&g)[N]
   }
 }
 
-// floats of one buffer stage: the policy's tile(s), z's rows [c][k], their norms
+// floats of one buffer stage: the policy's tile(s), z's rows [c][k]
 template <class Cot, int KD>
 __host__ __device__ constexpr int sweep_stage_floats() {
-  return Cot::kFloats + kSweepTile * KD + kSweepTile;
+  return Cot::kFloats + kSweepTile * KD;
 }
 
 // KD: features held per row, chunk blockIdx.z of them, [k0, k0 + KD) (zero past d); kWide:
@@ -211,7 +201,7 @@ __host__ __device__ constexpr int sweep_stage_floats() {
 template <class Cot, int KD, bool kWide, bool kP>
 __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
     split_sweep_kernel(const Cot cot, const float* __restrict__ x, const float* __restrict__ z,
-                       const float* __restrict__ znorm, const float* __restrict__ params,
+                       const float* __restrict__ params,
                        float* __restrict__ part_x, double* __restrict__ part_s, int n, int m,
                        int d, int family, int symmetric, int splits) {
   extern __shared__ __align__(16) float smem[];
@@ -226,18 +216,14 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
   const float p0 = kP ? params[0] : 0.f;
   const typename Cot::State st = cot.begin(row < n ? row : 0);
 
-  // this thread's row: its chunk's features, |x|^2; its row sum of w and sum of w z_c
+  // this thread's row: its chunk's features; its sum of w (x_r - z_c)
   const float* xrow = x + (long)(row < n ? row : 0) * d;
   float xr[KD], acc[KD];
-  float nx = 0.f, rs = 0.f;
 #pragma unroll
   for (int k = 0; k < KD; ++k) {
     xr[k] = (row < n && k0 + k < d) ? xrow[k0 + k] : 0.f;
-    if (!kWide) nx = fmaf(xr[k], xr[k], nx);
     acc[k] = 0.f;
   }
-  if (kWide)
-    for (int k = 0; k < d; ++k) nx = fmaf(xrow[k], xrow[k], nx);
   double acc_p = 0.0, acc_g = 0.0;
 
   auto fetch = [&](int t, int b) {
@@ -251,10 +237,6 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
       const bool in = col0 + c < m && k0 + k < d;
       cp_async4(zs + e, in ? z + (long)(col0 + c) * d + k0 + k : z, in ? 4 : 0);
     }
-    if (tid < kSweepTile) {
-      const bool in = col0 + tid < m;
-      cp_async4(zs + kSweepTile * KD + tid, in ? znorm + col0 + tid : znorm, in ? 4 : 0);
-    }
   };
 
   fetch(t0, 0);
@@ -267,7 +249,6 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
     __syncthreads();
     const float* cs = smem + b * stage;
     const float* zs = cs + Cot::kFloats;
-    const float* zn = zs + kSweepTile * KD;
     const int col0 = t * kSweepTile;
     // the thread's 16 entries in two batches of 8, three passes over a batch, each unrolled
     // so that the batch's entries interleave: d^2; the map's VJP (its family switch once a
@@ -280,18 +261,24 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
 #pragma unroll
       for (int j = 0; j < kSweepBatch; ++j) {
         const int cl = cg + 4 * (j0 + j);
-        float dot = 0.f;
+        float s2 = 0.f;
         if (kWide) {  // all d features; entries past m take z's last row and are masked below
           const float* zrow = z + (long)min(col0 + cl, m - 1) * d;
-          for (int k = 0; k < d; ++k) dot = fmaf(xrow[k], zrow[k], dot);
+          for (int k = 0; k < d; ++k) {
+            const float df = xrow[k] - zrow[k];
+            s2 = fmaf(df, df, s2);
+          }
         } else {
           float zc[KD];
           load_row(zs + cl * KD, zc);
 #pragma unroll
-          for (int k = 0; k < KD; ++k) dot = fmaf(xr[k], zc[k], dot);
+          for (int k = 0; k < KD; ++k) {
+            const float df = xr[k] - zc[k];
+            s2 = fmaf(df, df, s2);
+          }
         }
         const bool diag = symmetric && row == col0 + cl;
-        e[j] = diag ? 0.f : fmaxf(nx + zn[cl] - 2.f * dot, 0.f);
+        e[j] = diag ? 0.f : s2;
       }
       auto accumulate = [&](const float(&g)[kSweepBatch], const float(&dp)[kSweepBatch],
                             bool with_p) {
@@ -304,11 +291,10 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
           if (with_p && in) acc_p += (double)(sc * dp[j]);
           if (Cot::kWithG && in) acc_g += (double)(ct * g[j]);
           const float w = (in && !(symmetric && row == col0 + cl)) ? sc * e[j] : 0.f;
-          rs += w;
           float zc[KD];
           load_row(zs + cl * KD, zc);
 #pragma unroll
-          for (int k = 0; k < KD; ++k) acc[k] = fmaf(w, zc[k], acc[k]);
+          for (int k = 0; k < KD; ++k) acc[k] = fmaf(w, xr[k] - zc[k], acc[k]);
         }
       };
       float g[kSweepBatch], dp[kSweepBatch];  // g, dg/dp: read only where needed
@@ -333,8 +319,6 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
   }
 
   // the row's sums over its 4 threads (lanes rl, +8, +16, +24) in a fixed order
-  rs += __shfl_xor_sync(0xffffffffu, rs, 8);
-  rs += __shfl_xor_sync(0xffffffffu, rs, 16);
 #pragma unroll
   for (int k = 0; k < KD; ++k) {
     acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], 8);
@@ -344,7 +328,7 @@ __global__ void __launch_bounds__(kSweepThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1
     float* dst = part_x + ((long)split * n + row) * d + k0;
 #pragma unroll
     for (int k = 0; k < KD; ++k)
-      if (k0 + k < d) dst[k] = Cot::kXScale * (rs * xr[k] - acc[k]);
+      if (k0 + k < d) dst[k] = Cot::kXScale * acc[k];
   }
   // the sums over the CTA: a butterfly per warp, then the 8 warps in order, through the first
   // buffer (no copy is in flight after the last barrier); every chunk's CTA forms the same
@@ -394,7 +378,7 @@ static __global__ void split_sweep_reduce_kernel(const float* __restrict__ part_
 }
 
 template <class Cot, int KD, bool kWide, bool kP>
-int launch_split_sweep_kp(const Cot& cot, const float* x, const float* z, float* znorm,
+int launch_split_sweep_kp(const Cot& cot, const float* x, const float* z,
                           const float* params, float* xbar, float* part_x, double* part_s,
                           double* sums, int n, int m, int d, int family, int symmetric,
                           int splits, cudaStream_t stream) {
@@ -402,10 +386,9 @@ int launch_split_sweep_kp(const Cot& cot, const float* x, const float* z, float*
   cudaError_t err = cudaFuncSetAttribute(split_sweep_kernel<Cot, KD, kWide, kP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  column_norms_kernel<<<(m + 255) / 256, 256, 0, stream>>>(z, m, d, znorm);
   const int rblocks = (n + kSweepTile - 1) / kSweepTile, chunks = (d + KD - 1) / KD;
   split_sweep_kernel<Cot, KD, kWide, kP><<<dim3(rblocks, splits, chunks), kSweepThreads, smem,
-                                           stream>>>(cot, x, z, znorm, params, part_x, part_s,
+                                           stream>>>(cot, x, z, params, part_x, part_s,
                                                      n, m, d, family, symmetric, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -416,40 +399,40 @@ int launch_split_sweep_kp(const Cot& cot, const float* x, const float* z, float*
 }
 
 template <class Cot, int KD, bool kWide>
-int launch_split_sweep_kd(const Cot& cot, const float* x, const float* z, float* znorm,
+int launch_split_sweep_kd(const Cot& cot, const float* x, const float* z,
                           const float* params, float* xbar, float* part_x, double* part_s,
                           double* sums, int n, int m, int d, int family, int symmetric,
                           int splits, cudaStream_t stream) {
   if (family == 4 || family == 5)
-    return launch_split_sweep_kp<Cot, KD, kWide, true>(cot, x, z, znorm, params, xbar, part_x,
+    return launch_split_sweep_kp<Cot, KD, kWide, true>(cot, x, z, params, xbar, part_x,
                                                        part_s, sums, n, m, d, family,
                                                        symmetric, splits, stream);
-  return launch_split_sweep_kp<Cot, KD, kWide, false>(cot, x, z, znorm, params, xbar, part_x,
+  return launch_split_sweep_kp<Cot, KD, kWide, false>(cot, x, z, params, xbar, part_x,
                                                       part_s, sums, n, m, d, family, symmetric,
                                                       splits, stream);
 }
 
-// One sweep: z's norms into znorm (m), the split sweep, the in-order sums. x (n, d), z (m, d),
-// params: the map's hyperparameter at [0]; splits: 1 <= S <= column tiles. Scratch: znorm (m)
-// f32, part_x (S, n, d) f32, part_s (nsums * row blocks * S) f64. Writes xbar (n, d) whole and
+// One sweep: the split sweep, then the in-order sums. x (n, d), z (m, d), params: the map's
+// hyperparameter at [0]; splits: 1 <= S <= column tiles. Scratch: part_x (S, n, d) f32,
+// part_s (nsums * row blocks * S) f64. Writes xbar (n, d) whole and
 // sums[0] = sum scaled(C) dg/dp (and sums[1] = sum C g for a policy with kWithG).
 template <class Cot>
-int launch_split_sweep(const Cot& cot, const float* x, const float* z, float* znorm,
+int launch_split_sweep(const Cot& cot, const float* x, const float* z,
                        const float* params, float* xbar, float* part_x, double* part_s,
                        double* sums, int n, int m, int d, int family, int symmetric,
                        int splits, cudaStream_t stream) {
   if (d <= 8)
-    return launch_split_sweep_kd<Cot, 8, false>(cot, x, z, znorm, params, xbar, part_x, part_s,
+    return launch_split_sweep_kd<Cot, 8, false>(cot, x, z, params, xbar, part_x, part_s,
                                                 sums, n, m, d, family, symmetric, splits, stream);
   if (d <= 16)
-    return launch_split_sweep_kd<Cot, 16, false>(cot, x, z, znorm, params, xbar, part_x,
+    return launch_split_sweep_kd<Cot, 16, false>(cot, x, z, params, xbar, part_x,
                                                  part_s, sums, n, m, d, family, symmetric,
                                                  splits, stream);
   if (d <= 32)
-    return launch_split_sweep_kd<Cot, 32, false>(cot, x, z, znorm, params, xbar, part_x,
+    return launch_split_sweep_kd<Cot, 32, false>(cot, x, z, params, xbar, part_x,
                                                  part_s, sums, n, m, d, family, symmetric,
                                                  splits, stream);
-  return launch_split_sweep_kd<Cot, 32, true>(cot, x, z, znorm, params, xbar, part_x, part_s,
+  return launch_split_sweep_kd<Cot, 32, true>(cot, x, z, params, xbar, part_x, part_s,
                                               sums, n, m, d, family, symmetric, splits, stream);
 }
 

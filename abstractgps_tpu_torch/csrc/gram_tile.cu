@@ -1,7 +1,7 @@
-// gram_tile: fused isotropic gram, K[i][j] = g(max(|x_i|^2 + |z_j|^2 - 2 x_i.z_j, 0)).
+// gram_tile: fused isotropic gram, K[i][j] = g(sum_k (x_ik - z_jk)^2).
 //
 // Replaces abstractgps_tpu/ops/pallas_gram.py:128 (_fused_fwd_impl, pallas_call at :160).
-// Bound on the H100: the n*m*4 output bytes (0.040 ms for 8192 x 4096 at 3.35 TB/s); the 2D + 3
+// Bound on the H100: the n*m*4 output bytes (0.040 ms for 8192 x 4096 at 3.35 TB/s); the 3D
 // operations of d^2 and the map's ~10 an entry stay under the FP32 rate for those bytes at
 // D = 8, but not by much, so the design keeps the entry loop lean as well as the stores wide.
 //
@@ -10,14 +10,14 @@
 // 32) are template parameters, so the map's switch folds away. The tile's rows of x land in
 // shared memory as they lie (128 x d floats, 16-byte cp.async where x is 16-byte aligned) and
 // z's 128 rows land transposed ([k][c], 4-byte cp.async, true width d). Each thread owns 4
-// contiguous columns (their features in registers, read as one float4 per feature) and forms
-// their |z_j|^2 there, once; |x_i|^2 is formed from the staged rows; both by the same sequential
-// FMA chain, so a symmetric gram is symmetric to the bit, and no launch of its own (a first
-// norms pass, as the sweeps take, costs more than the 4 * D FMAs a thread at these shapes).
-// Each thread walks 16 rows, warp w taking rows w, w + 8, ...: per row it forms 4 dot products
-// by FP32 FMA (no TF32, no tensor cores: ops/precision.py), applies g, and stores the 4 entries
+// contiguous columns (their features in registers, read as one float4 per feature) and walks
+// 16 rows, warp w taking rows w, w + 8, ...: per row it forms the 4 squared distances from the
+// differences, d^2 = sum_k (x_ik - z_jk)^2 by FP32 FMA (no TF32, no tensor cores:
+// ops/precision.py), so a symmetric gram is symmetric to the bit and d^2 rounds relative to
+// itself (|x|^2 + |z|^2 - 2 x.z would round to eps |x|^2: 1e-2 at a 1-D time axis of [0, 100]),
+// applies g, and stores the 4 entries
 // as one float4 streaming store when m % 4 == 0 and out is 16-byte aligned (else as 4 scalar
-// ones), so a warp writes 512 contiguous bytes per row. Past 32 features the dot products read
+// ones), so a warp writes 512 contiguous bytes per row. Past 32 features the differences read
 // x and z through L1 (untuned; the main path has D = 8). The `symmetric` rule: d^2 = 0 where
 // i == j.
 #include "gram_sweep.cuh"
@@ -29,9 +29,9 @@ constexpr int kCols = 128;     // output columns of a CTA: 4 a lane
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kZStride = 132;  // floats per feature row of the transposed z tile
 
-// dynamic shared floats: x's rows, z's rows transposed, |x_i|^2
+// dynamic shared floats: x's rows, z's rows transposed
 __host__ __device__ constexpr int tile_floats(int d, bool wide) {
-  return wide ? kRows : kRows * d + d * kZStride + kRows;
+  return wide ? 0 : kRows * d + d * kZStride;
 }
 
 template <int F, int KD, bool kWide>
@@ -45,7 +45,6 @@ __global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
   const int nrows = min(kRows, n - row0);
   float* xs = smem;                                    // [r][k], true width d
   float* zs = smem + kRows * d;                        // [k][c], row stride kZStride
-  float* xn = smem + (kWide ? 0 : kRows * d + d * kZStride);
 
   if (!kWide) {
     const float* xsrc = x + (long)row0 * d;  // the tile's rows are one contiguous run
@@ -68,21 +67,11 @@ __global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
     agp::cp_async_commit();
     agp::cp_async_wait<0>();
     __syncthreads();
-    if (tid < kRows) {
-      float s = 0.f;
-      for (int k = 0; k < d; ++k) s = fmaf(xs[tid * d + k], xs[tid * d + k], s);
-      xn[tid] = s;
-    }
-  } else if (tid < kRows) {
-    const float* xrow = x + (long)min(row0 + tid, n - 1) * d;
-    float s = 0.f;
-    for (int k = 0; k < d; ++k) s = fmaf(xrow[k], xrow[k], s);
-    xn[tid] = s;
   }
 
-  // this thread's 4 columns: features (zero past d) and norms
+  // this thread's 4 columns' features (zero past d)
   const int c0 = col0 + 4 * lane;
-  float zc[4][KD], nz[4];
+  float zc[4][KD];
   if (!kWide) {
 #pragma unroll
     for (int k = 0; k < KD; ++k) {
@@ -90,27 +79,13 @@ __global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
       if (k < d) v = *reinterpret_cast<const float4*>(zs + k * kZStride + 4 * lane);
       zc[0][k] = v.x; zc[1][k] = v.y; zc[2][k] = v.z; zc[3][k] = v.w;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      nz[j] = 0.f;
-#pragma unroll
-      for (int k = 0; k < KD; ++k) nz[j] = fmaf(zc[j][k], zc[j][k], nz[j]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float* zrow = z + (long)min(c0 + j, m - 1) * d;
-      nz[j] = 0.f;
-      for (int k = 0; k < d; ++k) nz[j] = fmaf(zrow[k], zrow[k], nz[j]);
-    }
   }
-  __syncthreads();  // xn
   const float p0 = (F == 4 || F == 5) ? params[0] : 0.f;
 
 #pragma unroll 1
   for (int rl = warp; rl < nrows; rl += kThreads / 32) {
     const int r = row0 + rl;
-    float dot[4] = {0.f, 0.f, 0.f, 0.f};
+    float s2[4] = {0.f, 0.f, 0.f, 0.f};
     if (kWide) {
       const float* xrow = x + (long)r * d;
       const float* zrow[4];
@@ -119,7 +94,10 @@ __global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
       for (int k = 0; k < d; ++k) {
         const float xv = xrow[k];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dot[j] = fmaf(xv, zrow[j][k], dot[j]);
+        for (int j = 0; j < 4; ++j) {
+          const float df = xv - zrow[j][k];
+          s2[j] = fmaf(df, df, s2[j]);
+        }
       }
     } else {
       const float* xrow = xs + rl * d;
@@ -127,14 +105,16 @@ __global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
       for (int k = 0; k < KD; ++k) {
         const float xv = k < d ? xrow[k] : 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dot[j] = fmaf(xv, zc[j][k], dot[j]);
+        for (int j = 0; j < 4; ++j) {
+          const float df = xv - zc[j][k];
+          s2[j] = fmaf(df, df, s2[j]);
+        }
       }
     }
-    const float nxr = xn[rl];
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      float d2 = fmaxf(nxr + nz[j] - 2.f * dot[j], 0.f);
+      float d2 = s2[j];
       if (symmetric && r == c0 + j) d2 = 0.f;
       v[j] = agp::apply_map(F, d2, p0);
     }
@@ -152,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, KD <= 8 ? 3 : (KD <= 16 ? 2 : 1))
 template <int F, int KD, bool kWide>
 int launch(const float* x, const float* z, float* out, const float* params, int n, int m, int d,
            int symmetric, int vec_in, int vec_out, cudaStream_t stream) {
-  const int smem = tile_floats(d, kWide) * (int)sizeof(float);  // <= 33.8 KB at d <= 32
+  const int smem = tile_floats(d, kWide) * (int)sizeof(float);  // <= 33.3 KB at d <= 32
   const dim3 grid((m + kCols - 1) / kCols, (n + kRows - 1) / kRows);
   gram_tile_kernel<F, KD, kWide><<<grid, kThreads, smem, stream>>>(
       x, z, out, params, n, m, d, symmetric, vec_in, vec_out);

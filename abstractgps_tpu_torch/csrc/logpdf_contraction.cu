@@ -1,12 +1,12 @@
 // logpdf_contraction: the cotangents of F = <C, s2 * g(d^2(x', x'))> for the logpdf cotangent
 //   C = 1/2 (alpha_g alpha^T - gsum * Tsym),   Tsym = T + T^T - diag T,   T = tril(K^-1),
 // built entry by entry and never stored: returns s2bar = sum C*g, the map hyperparameter's bar
-// sum s2*C*dg/dp, and x'bar = 4 (rowsum(w) o x' - w x'), w = s2*C*dg/dd^2 (C is symmetric, so
-// the total is twice the row-operand cotangent of the symmetric sweep).
+// sum s2*C*dg/dp, and x'bar_r = 4 sum_c w_rc (x'_r - x'_c), w = s2*C*dg/dd^2 (C is symmetric,
+// so the total is twice the row-operand cotangent of the symmetric sweep).
 //
 // Replaces abstractgps_tpu/ops/pallas_gram.py:359 (logpdf_contraction, pallas_call at :458).
 // Bound on the H100: bytes. It needs T's lower triangle once (n(n+1)/2 * 4 bytes, 134 MB at
-// n = 8192: 0.040 ms at 3.35 TB/s); x', alpha and alpha_g are small, and the ~4D + 25
+// n = 8192: 0.040 ms at 3.35 TB/s); x', alpha and alpha_g are small, and the ~6D + 25
 // operations an entry at D = 8, q = 1 stay under the FP32 rate for the bytes moved.
 //
 // Design: the column-split sweep of gram_sweep.cuh over the full n x n grid of ordered entries
@@ -106,11 +106,11 @@ struct LogpdfCot {
 
 template <int kQ>
 int launch_q(const float* x, const float* ag, const float* a, const float* T, long ldt,
-             const float* scal, float* xbar, float* znorm, float* part_x, double* part_s,
+             const float* scal, float* xbar, float* part_x, double* part_s,
              double* sums, int n, int d, int q, int family, int splits, cudaStream_t stream) {
   const int vec = ldt % 4 == 0 && reinterpret_cast<uintptr_t>(T) % 16 == 0;
   const LogpdfCot<kQ> cot{ag, a, T, scal, ldt, n, q, vec};
-  return agp::launch_split_sweep(cot, x, x, znorm, scal, xbar, part_x, part_s, sums, n, n, d,
+  return agp::launch_split_sweep(cot, x, x, scal, xbar, part_x, part_s, sums, n, n, d,
                                  family, 1, splits, stream);
 }
 
@@ -118,11 +118,11 @@ int launch_q(const float* x, const float* ag, const float* a, const float* T, lo
 
 // x' (n, d), alpha_g and alpha (n, q), T (n, n) with row stride ldt (lower triangle read),
 // scal = [map hyperparameter, s2, gsum] on the device; splits: the column splits S (1 <= S <=
-// column tiles). Scratch: znorm (n) f32, part_x (S, n, d) f32, part_s (2 * row blocks * S)
-// f64. Writes xbar (n, d) whole and sums (2) = [hyperparameter bar, s2bar].
+// column tiles). Scratch: part_x (S, n, d) f32, part_s (2 * row blocks * S) f64. Writes xbar
+// (n, d) whole and sums (2) = [hyperparameter bar, s2bar].
 extern "C" int agp_logpdf_contraction(const float* x, const float* ag, const float* a,
                                       const float* T, long ldt, const float* scal, float* xbar,
-                                      float* znorm, float* part_x, double* part_s, double* sums,
+                                      float* part_x, double* part_s, double* sums,
                                       int n, int d, int q, int family, int splits,
                                       cudaStream_t stream) {
   const int tiles = (n + kSweepTile - 1) / kSweepTile;
@@ -130,11 +130,11 @@ extern "C" int agp_logpdf_contraction(const float* x, const float* ag, const flo
       splits > tiles)
     return (int)cudaErrorInvalidValue;
   if (q == 1)
-    return launch_q<1>(x, ag, a, T, ldt, scal, xbar, znorm, part_x, part_s, sums, n, d, q,
+    return launch_q<1>(x, ag, a, T, ldt, scal, xbar, part_x, part_s, sums, n, d, q,
                        family, splits, stream);
   if (q <= 4)
-    return launch_q<4>(x, ag, a, T, ldt, scal, xbar, znorm, part_x, part_s, sums, n, d, q,
+    return launch_q<4>(x, ag, a, T, ldt, scal, xbar, part_x, part_s, sums, n, d, q,
                        family, splits, stream);
-  return launch_q<0>(x, ag, a, T, ldt, scal, xbar, znorm, part_x, part_s, sums, n, d, q,
+  return launch_q<0>(x, ag, a, T, ldt, scal, xbar, part_x, part_s, sums, n, d, q,
                      family, splits, stream);
 }

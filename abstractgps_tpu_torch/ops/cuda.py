@@ -43,13 +43,11 @@ _SIGNATURES = {
     "agp_slab_factor": (_P, _P, _P, _P, _I, _I, _P),
     # L, ld, block_stride, nb, B, out, stream
     "agp_tri_inv_block": (_P, _L, _L, _I, _I, _P, _P),
-    # x, z, C, ldc, params, xbar, znorm, part_x, part_p, pbar, n, m, d, family, symmetric,
-    # mode, splits, stream
-    "agp_gram_bwd": (_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # x, ag, a, T, ldt, scal, xbar, znorm, part_x, part_s, sums, n, d, q, family, splits,
-    # stream
-    "agp_logpdf_contraction": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _P),
+    # x, z, C, ldc, params, xbar, part_x, part_p, pbar, n, m, d, family, symmetric, mode,
+    # splits, stream
+    "agp_gram_bwd": (_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, ag, a, T, ldt, scal, xbar, part_x, part_s, sums, n, d, q, family, splits, stream
+    "agp_logpdf_contraction": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # A, lda, L, B, stream
     "agp_chol_block": (_P, _L, _P, _I, _P),
 }

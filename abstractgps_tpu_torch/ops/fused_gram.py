@@ -2,21 +2,26 @@
 
 Counterpart of the JAX package's ``ops/pallas_gram.py``. Each output entry is
 
-    d² = max(‖x_i‖² + ‖z_j‖² − 2·x_i·z_j, 0)      (exact f32)
-    K  = g(d²)                                   (the kernel's map, fused)
+    d² = Σ_k (x_ik − z_jk)²      (f32, from the differences)
+    K  = g(d²)                  (the kernel's map, fused)
 
-so d² never reaches device memory. On a CUDA tensor ``gram_tile`` launches
-the hand-written kernel ``csrc/gram_tile.cu``; on a CPU tensor it runs
-``gram_tile_plain``, the same function in plain torch.
+so d² never reaches device memory. The JAX package forms d² as
+‖x_i‖² + ‖z_j‖² − 2·x_i·z_j, which rounds to eps·‖x‖²: on a 1-D time axis
+scaled to [75, 100] that is ~1e-2 in d², and the f32 logpdf of 2048 such
+points lost 6e-3 of its value and most of its σ² gradient. The port's
+kernels and plain versions take the differences, whose rounding is
+relative to d². On a CUDA tensor ``gram_tile`` launches the hand-written
+kernel ``csrc/gram_tile.cu``; on a CPU tensor it runs ``gram_tile_plain``,
+the same function in plain torch.
 
 ``gram_tile`` — source note:
   replaces ``abstractgps_tpu/ops/pallas_gram.py:128`` (``_fused_fwd_impl``,
   ``pallas_call`` at :160). On the H100 it is bound by bytes: it writes
-  n·m·4 bytes and does 2·D + 3 flops and the map per entry. Design: a
+  n·m·4 bytes and does 3·D flops and the map per entry. Design: a
   128×128 output tile per CTA, the family and feature width as template
   parameters; x's rows and z's rows (transposed) staged at their true width
-  with ``cp.async``; a thread owns 4 contiguous columns (features and
-  norms in registers, formed once) and stores them as one
+  with ``cp.async``; a thread owns 4 contiguous columns (their features in
+  registers) and stores them as one
   ``float4`` streaming store where the rows allow it; FP32 FMA only. The
   kernel masks its ragged edge, so inputs are not padded to the tile (the
   Pallas ``_pad_rows`` has no counterpart). Hyperparameters of g (RQ α, γ)
@@ -30,10 +35,9 @@ the hand-written kernel ``csrc/gram_tile.cu``; on a CPU tensor it runs
   symmetric gram). Design: a grid of 64-row blocks × ``column_split_count``
   column ranges, so the card fills at any (n, m); each CTA streams its
   cotangent tiles through a ``cp.async`` double buffer, rebuilds d² with
-  FP32 FMA, applies the map's VJP and accumulates rowsum(w) and w·z in
+  FP32 FMA, applies the map's VJP and accumulates Σ w·(x_r − z_c) in
   registers (one row a thread, up to 32 features; wider inputs add a grid
-  dimension of 32-feature chunks; z's row norms from a small first
-  launch). No atomics: per-split partials of x̄ and FP64 per-CTA bars are
+  dimension of 32-feature chunks). No atomics: per-split partials of x̄ and FP64 per-CTA bars are
   added in a fixed order by a small last launch.
 
 ``logpdf_contraction`` — source note (``csrc/logpdf_contraction.cu``):
@@ -188,16 +192,27 @@ def _map_vjp(family: int, d2: torch.Tensor, p: torch.Tensor):
 
 
 def _sqdist_plain(x, z, symmetric: bool) -> torch.Tensor:
-    """d² as the kernels form it (exact f32 product, clamped at 0, exact-zero
-    diagonal when symmetric)."""
-    with full_f32():
-        g = x @ z.T
-    nx = torch.sum(x * x, dim=1)
-    nz = torch.sum(z * z, dim=1)
-    d2 = torch.clamp(nx[:, None] + nz[None, :] - 2.0 * g, min=0.0)
+    """d² as the kernels form it: Σ_k (x_ik − z_jk)², summed from feature 0
+    (an exact-zero diagonal when symmetric). The differences keep d²'s
+    rounding relative to d² itself, where ‖x‖² + ‖z‖² − 2x·z would round to
+    eps·‖x‖² for inputs far from the origin."""
+    d2 = torch.zeros((x.shape[0], z.shape[0]), dtype=x.dtype, device=x.device)
+    for k in range(x.shape[1]):
+        df = x[:, k, None] - z[None, :, k]
+        d2 += df * df
     if symmetric:
         d2.diagonal().zero_()
     return d2
+
+
+def _weighted_differences(w, x, z) -> torch.Tensor:
+    """x̄ of a sweep before its scale: Σ_c w_rc (x_r − z_c), feature by
+    feature (the kernels' form, free of the cancellation of
+    rowsum(w)·x_r − w·z)."""
+    out = torch.empty_like(x)
+    for k in range(x.shape[1]):
+        out[:, k] = torch.sum(w * (x[:, k, None] - z[None, :, k]), dim=1)
+    return out
 
 
 def gram_tile_plain(x, z, family: int, params, symmetric: bool = False):
@@ -286,8 +301,7 @@ def gram_bwd_plain(x, z, C, family: int, params, symmetric: bool = False,
     w = Ct * dg
     if symmetric:
         w.diagonal().zero_()
-    with full_f32():
-        xbar = 2.0 * (torch.sum(w, dim=1, keepdim=True) * x - w @ z)
+    xbar = 2.0 * _weighted_differences(w, x, z)
     pbar = torch.sum((Ct * dp).double())
     return xbar, (0.5 * pbar if mode == "sym" else pbar)
 
@@ -330,14 +344,13 @@ def gram_bwd(x: torch.Tensor, z: torch.Tensor, C: torch.Tensor, family: int,
     buf = _params_buffer(params, x.device)
     splits = column_split_count(n, m)
     xbar = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    znorm = torch.empty(m, dtype=torch.float32, device=x.device)
     part_x = torch.empty((splits, n, d), dtype=torch.float32, device=x.device)
     part_p = torch.empty(-(-n // _TILE) * splits, dtype=torch.float64, device=x.device)
     pbar = torch.empty(1, dtype=torch.float64, device=x.device)
     with torch.cuda.device(x.device):
         err = cuda.library().agp_gram_bwd(
             x.data_ptr(), z.data_ptr(), C.data_ptr(), C.stride(0), buf.data_ptr(),
-            xbar.data_ptr(), znorm.data_ptr(), part_x.data_ptr(), part_p.data_ptr(),
+            xbar.data_ptr(), part_x.data_ptr(), part_p.data_ptr(),
             pbar.data_ptr(), n, m, d, family, int(symmetric), _MODES[mode], splits,
             cuda.stream(x))
     cuda.check(err, "gram_bwd")
@@ -355,8 +368,7 @@ def logpdf_contraction_plain(xp, s2, alpha_g, alpha, gsum, T, family: int, param
     g, dg, dp = _map_vjp(family, d2, params)
     w = Ct * s2 * dg
     w.diagonal().zero_()
-    with full_f32():
-        xbar = 4.0 * (torch.sum(w, dim=1, keepdim=True) * xp - w @ xp)
+    xbar = 4.0 * _weighted_differences(w, xp, xp)
     s2bar = torch.sum((Ct * g).double())
     pbar = torch.sum((Ct * s2 * dp).double())
     return s2bar, pbar, xbar
@@ -369,8 +381,8 @@ def logpdf_contraction(xp: torch.Tensor, s2: torch.Tensor, alpha_g: torch.Tensor
     ``C = ½(α_g αᵀ − gsum·(T + Tᵀ − diag T))``, T = tril(K⁻¹) (lower
     triangle read; T may be a strided view): ``(s̄2, p̄, x̄′)``, the scalars
     as f64 0-dim tensors. x′ (n, D), α and α_g = α·ḡ (n, q), s2 and gsum
-    0-dim tensors. CUDA: one call of ``csrc/logpdf_contraction.cu`` (z's
-    norms, the split sweep and the in-order sum of its partials)."""
+    0-dim tensors. CUDA: one call of ``csrc/logpdf_contraction.cu`` (the
+    split sweep and the in-order sum of its partials)."""
     if not xp.is_cuda:
         buf = _params_buffer(params, xp.device, xp.dtype)
         return logpdf_contraction_plain(xp, s2, alpha_g, alpha, gsum, T, family, buf)
@@ -389,14 +401,13 @@ def logpdf_contraction(xp: torch.Tensor, s2: torch.Tensor, alpha_g: torch.Tensor
     scal = torch.cat([p0, s2.reshape(1), gsum.reshape(1)])
     splits = column_split_count(n, n)
     xbar = torch.empty((n, d), dtype=torch.float32, device=xp.device)
-    znorm = torch.empty(n, dtype=torch.float32, device=xp.device)
     part_x = torch.empty((splits, n, d), dtype=torch.float32, device=xp.device)
     part_s = torch.empty(2 * -(-n // _TILE) * splits, dtype=torch.float64, device=xp.device)
     sums = torch.empty(2, dtype=torch.float64, device=xp.device)
     with torch.cuda.device(xp.device):
         err = cuda.library().agp_logpdf_contraction(
             xp.data_ptr(), alpha_g.data_ptr(), alpha.data_ptr(), T.data_ptr(), T.stride(0),
-            scal.data_ptr(), xbar.data_ptr(), znorm.data_ptr(), part_x.data_ptr(),
+            scal.data_ptr(), xbar.data_ptr(), part_x.data_ptr(),
             part_s.data_ptr(), sums.data_ptr(), n, d, q, family, splits, cuda.stream(xp))
     cuda.check(err, "logpdf_contraction")
     cuda.LAUNCHES["logpdf_contraction"] += 1

@@ -489,13 +489,13 @@ MAP_VJP_FLOPS = {0: 3, 1: 4, 2: 6, 3: 11, 4: 9, 5: 9, 6: 6}
 def sweep_flops(n, m, d, family, sym, cot_flops, epi_flops):
     """Operations a backward sweep over the (n, m) grid needs: per pair
     (each entry of the lower triangle when ``sym``, else each entry) d²
-    (2D + 3), the cotangent entry (``cot_flops``), the map VJP and the
-    epilogue (``epi_flops``; + 2 for Σ C·∂g/∂p of a map hyperparameter);
-    per ordered entry the x̄ update rowsum(w)∘x − w·z (2D + 1)."""
+    from the differences (3D), the cotangent entry (``cot_flops``), the map
+    VJP and the epilogue (``epi_flops``; + 2 for Σ C·∂g/∂p of a map
+    hyperparameter); per ordered entry the x̄ update w·(x_r − z_c) (3D)."""
     pairs = n * (n + 1) / 2 if sym else n * m
-    per_pair = 2 * d + 3 + cot_flops + MAP_VJP_FLOPS[family] + epi_flops + (
+    per_pair = 3 * d + cot_flops + MAP_VJP_FLOPS[family] + epi_flops + (
         2 if family in (4, 5) else 0)
-    return pairs * per_pair + n * m * (2.0 * d + 1)
+    return pairs * per_pair + n * m * 3.0 * d
 
 
 def _tol_rel(kappa: float) -> float:
@@ -545,8 +545,9 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
               f"{_ms(r['library_device_ms'])} ms", flush=True)
 
     # gram_tile at the prediction cross-gram (n, m) (σ² is applied outside
-    # it). Tolerance: d² rounding ≲ 8·eps·(‖x‖² + ‖z‖²) ≤ 1.2e-5 at D = 8,
-    # ℓ ≥ 0.8, and |dg/d(d²)| ≤ 1.5 for Matérn-3/2 → |ΔK| ≤ 2e-5: 3e-5 stated
+    # it). Tolerance: d² from the differences rounds ≲ (D + 1)·eps·d² ≤
+    # 6.7e-6 in the unit cube at D = 8, ℓ ≥ 0.8, and |dg/d(d²)| ≤ 1.5 for
+    # Matérn-3/2 → |ΔK| ≤ 1e-5: 3e-5 stated
     got = fused_gram.gram_tile(xt, xst, fam, params)
     want = fused_gram.gram_tile_plain(xt, xst, fam, pbuf)
     err = float((got - want).abs().max())
@@ -680,8 +681,7 @@ def _bwd_compare(name, got, want, xbar_mag, m, shape):
     """A backward kernel's (scalars..., x̄) against its plain version's.
 
     x̄ = xscale·Σ_c w_rc (x_r − z_c) sums m f32 terms per entry, in another
-    order and form than the plain version (which takes rowsum(w)·x − w·z, as
-    the TPU kernel did). Rounding of two such sums differs by ~√m·eps times
+    order than the plain version. Rounding of two such sums differs by ~√m·eps times
     the sum of the terms' magnitudes (``xbar_mag``, entry by entry); the
     largest ratio seen on the card at m = 8192 is 0.35 of that, so we allow
     2·√m·eps·Σ|terms|. A tile of 64 terms skipped or counted twice moves an
@@ -975,9 +975,9 @@ GPRIME_MAX = {0: 0.5, 2: 1.5}
 
 def gram_tile_tol(x, z, family) -> float:
     """Tolerance of ``gram_tile`` against its plain version on inputs of any
-    scale: both form d² = ‖x‖² + ‖z‖² − 2x·z in f32 with the sums in another
-    order, so they differ by ≲ 8·eps·(max‖x‖² + max‖z‖²) in d², times the
-    map's largest slope in K."""
+    scale: 8·eps·(max‖x‖² + max‖z‖²) in d², times the map's largest slope in
+    K. Both sum (x − z)² in f32, the kernel by FMA, and differ by ≲
+    (D + 1)·eps·d²."""
     nx = float((x.double() ** 2).sum(1).max())
     nz = float((z.double() ** 2).sum(1).max())
     return 8.0 * EPS32 * (nx + nz) * GPRIME_MAX[family]
@@ -2288,6 +2288,393 @@ def run_pathwise(seed, dev):
     return ok, runs, checks
 
 
+# ---------------------------------------------------------------------------
+# The Markov (state-space) backend: the JAX package's own Markov benchmark at
+# N = 10^6, then its on-chip cross-check at N = 8192 against the dense path
+# ---------------------------------------------------------------------------
+
+# bench.py:319-349 (N = 10^6, t = sort(U(0, 1000)), σ² = 1, Matérn-3/2, ℓ = 0.5,
+# noise 0.1, f32) and examples/validate_tpu.py:92-113 (N = 8192 over U(0, 50)):
+# test points of the marginals, of the joint posterior and of its cross block
+MARKOV = dict(n=1_000_000, t_max=1000.0, s2=1.0, ell=0.5, noise=0.1, n_val=8192,
+              t_val=50.0, m_val=1024, m_joint=64, m_cross=32, samples=256)
+# the dense comparators' runs at N = 8192, D = 1, and the kernels each must launch
+MARKOV_DENSE_KERNELS = {"markov dense logpdf": ("gram_tile", "slab_factor"),
+                        "markov dense grad": ("gram_tile", "slab_factor", "tri_inv_block",
+                                              "logpdf_contraction"),
+                        "markov dense pred": ("gram_tile", "slab_factor", "tri_inv_block")}
+MARKOV_F32 = 1e-3  # the JAX package's f32 contract for one Matérn component (relative)
+MARKOV_VS_DENSE = 5e-3  # examples/validate_tpu.py:112-113
+# central differences of the numpy f64 filter at h = 1e-4·θ: their truncation,
+# (h/θ)²·θ²|f⁽³⁾|/(6|f′|), is ~1e-8 for a log-likelihood whose k-th derivative
+# scales as N/θᵏ, and the fsum'd filter's rounding moves a difference by ≲ 1e-9
+# relative; 1e-5 leaves room
+MARKOV_FD = 1e-5
+
+
+def markov_filter_f64(t, y, s2, ell, noise):
+    """log p(y) of σ²·Matérn-3/2 (ℓ) plus noise at sorted times ``t``: a
+    sequential Kalman filter on the host in f64, unrolled to scalars and
+    written apart from the port. A = e^{−λdt}[[1 + λdt, dt], [−λ²dt,
+    1 − λdt]], λ = √3/ℓ, Q = P∞ − A P∞ Aᵀ, P∞ = diag(σ², λ²σ²) (at dt = 0:
+    A = I, Q = 0); the log terms summed by ``math.fsum``."""
+    import numpy as np
+
+    lam = math.sqrt(3.0) / ell
+    dt = np.diff(np.asarray(t, dtype=np.float64))
+    e = np.exp(-lam * dt)
+    a00, a01, a10, a11 = e * (1.0 + lam * dt), e * dt, -e * lam * lam * dt, e * (1.0 - lam * dt)
+    p0, p1 = s2, s2 * lam * lam
+    q00 = p0 - (a00 * a00 * p0 + a01 * a01 * p1)
+    q01 = -(a00 * a10 * p0 + a01 * a11 * p1)
+    q11 = p1 - (a10 * a10 * p0 + a11 * a11 * p1)
+    ys = np.asarray(y, dtype=np.float64).tolist()
+    m0 = m1 = P01 = 0.0
+    P00, P11 = p0, p1  # the prediction of step 0: the stationary prior
+    terms = []
+    log = math.log
+    steps = zip(ys[1:], a00.tolist(), a01.tolist(), a10.tolist(), a11.tolist(),
+                q00.tolist(), q01.tolist(), q11.tolist())
+    yk = ys[0]
+    while True:
+        S = P00 + noise
+        v = yk - m0
+        terms.append(log(S) + v * v / S)
+        k0, k1 = P00 / S, P01 / S
+        m0, m1 = m0 + k0 * v, m1 + k1 * v
+        P00, P01, P11 = P00 - k0 * P00, P01 - k0 * P01, P11 - k1 * P01
+        nxt = next(steps, None)
+        if nxt is None:
+            break
+        yk, b00, b01, b10, b11, r00, r01, r11 = nxt
+        m0, m1 = b00 * m0 + b01 * m1, b10 * m0 + b11 * m1
+        t00, t01 = b00 * P00 + b01 * P01, b00 * P01 + b01 * P11
+        t10, t11 = b10 * P00 + b11 * P01, b10 * P01 + b11 * P11
+        P00, P01, P11 = (t00 * b00 + t01 * b01 + r00, t00 * b10 + t01 * b11 + r01,
+                         t10 * b10 + t11 * b11 + r11)
+    return -0.5 * (len(ys) * math.log(2.0 * math.pi) + math.fsum(terms))
+
+
+def markov_theta(dtype, dev, c):
+    """σ², ℓ and the noise of ``c`` as caller tensors that require grad."""
+    import torch
+
+    return [torch.tensor(c[k], dtype=dtype, device=dev, requires_grad=True)
+            for k in ("s2", "ell", "noise")]
+
+
+def markov_fx(theta, t):
+    import abstractgps_tpu_torch as agt
+
+    s2, ell, noise = theta
+    return agt.GP(s2 * agt.with_lengthscale(agt.Matern32Kernel(), ell))(t, noise)
+
+
+def markov_value_and_grad(theta, t, y, fn):
+    """``fn(fx, y)`` at caller tensors θ and its ∇ in θ (f64 on the host)."""
+    import torch
+
+    lp = fn(markov_fx(theta, t), y)
+    g = torch.autograd.grad(lp, theta)
+    return float(lp.detach()), torch.stack(g).double().cpu()
+
+
+def _rel(got, want):
+    """|got − want| / |want|: a float, or a list a component for tensors."""
+    import torch
+
+    if isinstance(got, torch.Tensor):
+        return ((got - want).abs() / want.abs()).tolist()
+    return abs(got - want) / abs(want)
+
+
+def run_markov(seed, dev):
+    """[markov]: ``markov_logpdf(fx, y, parallel=True)`` and its ∇ in caller
+    (σ², ℓ, noise) at the JAX package's Markov benchmark (N = 10⁶, f32), each
+    counted (no port kernel may launch), timed over 3 warm calls and traced;
+    the ∇'s peak memory; (a) the logpdf against the numpy f64 filter, (b) the
+    ∇ against the port's f64 parallel ∇ and central differences of the numpy
+    filter, all on the same f32 inputs widened to f64. Then
+    ``run_markov_val``. Returns (ok, launches by run, the kernels' checks)."""
+    import numpy as np
+    import torch
+
+    from abstractgps_tpu_torch.models import markov
+
+    c = MARKOV
+    f32, f64 = torch.float32, torch.float64
+    runs = {}
+    rng = np.random.default_rng(seed)
+    t = torch.as_tensor(np.sort(rng.uniform(0.0, c["t_max"], size=c["n"])), dtype=f32,
+                        device=dev)
+    y = torch.as_tensor(rng.normal(size=c["n"]), dtype=f32, device=dev)
+    zero_steps = int((t[1:] == t[:-1]).sum())
+    print(f"[markov] N={c['n']} t ~ sort(U(0, {c['t_max']:g})) in f32: {zero_steps} zero "
+          f"steps (repeated timepoints, dt = 0)", flush=True)
+
+    def par_logpdf(fx, yy):
+        return markov.markov_logpdf(fx, yy, parallel=True)
+
+    # ---- the parallel logpdf and its ∇ at N = 10^6 -------------------------
+    fx_plain = markov_fx([c["s2"], c["ell"], c["noise"]], t)
+    theta = markov_theta(f32, dev, c)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launches()
+        lp = float(par_logpdf(fx_plain, y))
+        torch.cuda.synchronize()
+        runs["markov logpdf"] = read_launches()
+        t_lp = host_ms(lambda: par_logpdf(fx_plain, y))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    _, g32 = markov_value_and_grad(theta, t, y, par_logpdf)
+    torch.cuda.synchronize()
+    runs["markov grad"] = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    t_g = host_ms(lambda: markov_value_and_grad(theta, t, y, par_logpdf))
+    launched = {r: {k: v for k, v in runs[r].items() if v} for r in runs}
+    ok_launch = not any(launched.values())
+    print(f"[markov] parallel logpdf {lp:.6f}: ms {', '.join(f'{v:.3f}' for v in t_lp)}; ∇ "
+          f"(s2, ell, noise) {g32.tolist()}: ms {', '.join(f'{v:.3f}' for v in t_g)}; the ∇'s "
+          f"peak {peak:.3f} GiB above its inputs; port kernels launched {json.dumps(launched)} "
+          f"({'none, ok' if ok_launch else 'FAIL'}); parallel=False is not run at this N (a "
+          f"Python loop of ~25 launches a step: minutes)", flush=True)
+    profile_breakdown("markov logpdf", lambda: par_logpdf(fx_plain, y), top=8)
+    profile_breakdown("markov grad", lambda: markov_value_and_grad(theta, t, y, par_logpdf),
+                      top=8)
+
+    # ---- (a) the logpdf against the numpy f64 filter on the same f32 inputs
+    t_np, y_np = t.double().cpu().numpy(), y.double().cpu().numpy()
+    t0 = time.perf_counter()
+    lp_np = markov_filter_f64(t_np, y_np, c["s2"], c["ell"], c["noise"])
+    np_s = time.perf_counter() - t0
+    lp64, g64 = markov_value_and_grad(markov_theta(f64, dev, c), t.double(), y.double(),
+                                      par_logpdf)
+    err_a, err_a64 = _rel(lp, lp_np), _rel(lp64, lp_np)
+    ok_a = math.isfinite(lp) and err_a <= MARKOV_F32 and err_a64 <= 1e-9
+    print(f"[markov] (a) logpdf f32 {lp:.6f} vs the numpy f64 filter {lp_np:.6f} ({np_s:.1f} s "
+          f"on the host): rel error {err_a:.3e} (bound {MARKOV_F32:g}, the JAX package's f32 "
+          f"contract); the port at f64 {lp64:.9f}: rel {err_a64:.3e} (bound 1e-9); "
+          f"{'ok' if ok_a else 'FAIL'}",
+          flush=True)
+
+    # ---- (b) the ∇: finite, against the port's f64 ∇ and central differences
+    fd = []
+    for k in ("s2", "ell", "noise"):
+        h = 1e-4 * c[k]
+        hi, lo = dict(c, **{k: c[k] + h}), dict(c, **{k: c[k] - h})
+        fd.append((markov_filter_f64(t_np, y_np, hi["s2"], hi["ell"], hi["noise"])
+                   - markov_filter_f64(t_np, y_np, lo["s2"], lo["ell"], lo["noise"])) / (2 * h))
+    fd = torch.tensor(fd, dtype=f64)
+    r32, r64_fd = _rel(g32, g64), _rel(g64, fd)
+    finite = bool(torch.isfinite(g32).all()) and bool(torch.isfinite(g64).all())
+    ok_b = finite and max(r32) <= MARKOV_F32 and max(r64_fd) <= MARKOV_FD
+    print(f"[markov] (b) ∇ (s2, ell, noise) f32 {g32.tolist()}; f64 {g64.tolist()}; central "
+          f"differences of the numpy f64 filter {fd.tolist()}; finite {finite} (ell's "
+          f"component despite {zero_steps} zero steps); f32 vs f64 rel {r32} (bound "
+          f"{MARKOV_F32:g} a component); f64 vs differences rel {r64_fd} (bound {MARKOV_FD:g}); "
+          f"{'ok' if ok_b else 'FAIL'}", flush=True)
+    del t, y, fx_plain, theta
+    torch.cuda.empty_cache()
+    val_ok, val_runs, checks = run_markov_val(seed, dev)
+    runs.update(val_runs)
+    return ok_launch and ok_a and ok_b and val_ok, runs, checks
+
+
+def markov_dense_f64(t, y, xm, xj, xc, c):
+    """The dense f64 posterior on the card, written apart from the port:
+    σ²·Matérn-3/2 from |t_i − t_j| (``matern32_f64``), ``torch.linalg``: the
+    logpdf, κ(K + noise·I) by power iteration, the mean and variance at
+    ``xm``, the mean and covariance at ``xj`` and the cross covariance
+    between ``xj`` and ``xc``."""
+    import torch
+
+    s2, ell, noise = c["s2"], c["ell"], c["noise"]
+    t64, y64 = t.double()[:, None], y.double()
+    n = t64.shape[0]
+    K = matern32_f64(t64, t64, s2, ell)
+    K.diagonal().add_(noise)
+    v = torch.ones(n, dtype=torch.float64, device=t.device)
+    for _ in range(50):
+        v = K @ v
+        v = v / v.norm()
+    kappa = float(v @ (K @ v)) * 1.01 / noise
+    L = torch.linalg.cholesky(K)
+    del K
+    z = torch.linalg.solve_triangular(L, y64[:, None], upper=False)
+    lp = -0.5 * (n * math.log(2 * math.pi) + 2 * torch.log(torch.diagonal(L)).sum()
+                 + (z * z).sum())
+    alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+
+    def post(a, b):
+        a64, b64 = a.double()[:, None], b.double()[:, None]
+        Ka, Kb = matern32_f64(t64, a64, s2, ell), matern32_f64(t64, b64, s2, ell)
+        Va = torch.linalg.solve_triangular(L, Ka, upper=False)
+        Vb = torch.linalg.solve_triangular(L, Kb, upper=False)
+        return Ka.T @ alpha, matern32_f64(a64, b64, s2, ell) - Va.T @ Vb
+
+    mu_m, C_m = post(xm, xm)
+    mu_j, C_j = post(xj, xj)
+    _, C_jc = post(xj, xc)
+    return dict(lp=float(lp), kappa=kappa, mean=mu_m, var=torch.diagonal(C_m).clone(),
+                mean_j=mu_j, cov_j=C_j, cov_jc=C_jc)
+
+
+def run_markov_val(seed, dev):
+    """[markov val], the JAX package's on-chip cross-check
+    (examples/validate_tpu.py:92-113) at N = 8192 over U(0, 50), f32: the
+    dense fused logpdf, ∇ and ``mean_and_var`` (kernels 1, 2, 4, 5 at D = 1,
+    each counted) against a dense f64 oracle; then for each filter the
+    logpdf, its ∇, the marginals at 1024 points, ``mean_and_cov`` at 64 and
+    the 64 × 32 cross block, and 256 FFBS samples at the 64 points, against
+    the oracle (and the logpdf against the dense fused one), with host ms
+    per call and a step; the comparators' kernels against their plain
+    versions on their inputs. Returns (ok, launches by run, checks)."""
+    import numpy as np
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.models import markov
+
+    c = MARKOV
+    f32, n, M, S = torch.float32, c["n_val"], c["m_val"], c["samples"]
+    rng = np.random.default_rng(seed + 40)
+
+    def draw(size, sort=False):
+        a = rng.uniform(0.0, c["t_val"], size=size)
+        return torch.as_tensor(np.sort(a) if sort else a, dtype=f32, device=dev)
+
+    t = draw(n, sort=True)
+    y = torch.as_tensor(rng.normal(size=n), dtype=f32, device=dev)
+    xm, xj, xc = draw(M), draw(c["m_joint"]), draw(c["m_cross"])
+    kernel = c["s2"] * agt.with_lengthscale(agt.Matern32Kernel(), c["ell"])
+    fx = agt.GP(kernel.to(device=dev, dtype=f32))(t, c["noise"])
+    with torch.no_grad():
+        ref = markov_dense_f64(t, y, xm, xj, xc, c)
+    g_ref = grad_oracle_f64(c["s2"], c["ell"], t[:, None], y, noise=c["noise"])
+    torch.cuda.empty_cache()
+    kappa, runs = ref["kappa"], {}
+    tol_dense = 10.0 * kappa * EPS32
+    print(f"[markov val] N={n} t ~ sort(U(0, {c['t_val']:g})), σ²·Matérn-3/2 ℓ={c['ell']}, "
+          f"noise {c['noise']}, f32; f64 logpdf {ref['lp']:.6f}; kappa<= {kappa:.3e}",
+          flush=True)
+
+    # ---- the dense comparators (kernels 1, 2, 4, 5 at D = 1) ----------------
+    with capture_first_input("gram_tile", "fused_gram",
+                             key=lambda a: (a[0].shape[0], a[1].shape[0])) as c1, \
+            capture_first_input("slab_factor") as c2, capture_first_input("tri_inv_block") as c4:
+        with torch.no_grad():
+            reset_launches()
+            lp_d = float(fx.logpdf(y))
+            torch.cuda.synchronize()
+            runs["markov dense logpdf"] = read_launches()
+            reset_launches()
+            mu_d, var_d = agt.posterior(fx, y).mean_and_var(xm)
+            torch.cuda.synchronize()
+            runs["markov dense pred"] = read_launches()
+        reset_launches()
+        _, g_d = markov_value_and_grad(markov_theta(f32, dev, c), t, y,
+                                       lambda f, yy: f.logpdf(yy))
+        runs["markov dense grad"] = read_launches()
+    e_d = _rel(lp_d, ref["lp"])
+    e_dm = float((mu_d.double() - ref["mean"]).abs().max() / ref["mean"].abs().max())
+    e_dv = float((var_d.double() - ref["var"]).abs().max() / ref["var"].max())
+    ok = e_d <= MARKOV_F32 and e_dm <= tol_dense and e_dv <= tol_dense
+    print(f"[markov val] dense fused logpdf {lp_d:.6f}: rel error vs f64 {e_d:.3e} (bound "
+          f"{MARKOV_F32:g}); mean_and_var at M={M}: mean {e_dm:.3e}, var {e_dv:.3e} "
+          f"(10·κ·eps = {tol_dense:.3e}); launches logpdf "
+          f"{json.dumps(runs['markov dense logpdf'])}, mean_and_var "
+          f"{json.dumps(runs['markov dense pred'])}, ∇ {json.dumps(runs['markov dense grad'])}; "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    ok = check_grads(f"markov val dense grad N={n}", g_d, g_ref, kappa, budget=False) and ok
+
+    # ---- each filter: logpdf, ∇, marginals, joint posterior, FFBS -----------
+    for parallel in (False, True):
+        tag = f"markov val {'parallel' if parallel else 'sequential'}"
+        times = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            runs[f"{tag} {name}"] = read_launches()
+            return out
+
+        with torch.no_grad():
+            lp_m = float(timed("logpdf", lambda: markov.markov_logpdf(fx, y, parallel)))
+            mu, var = timed("mean_and_var",
+                            lambda: markov.markov_mean_and_var(fx, y, xm, parallel))
+            post = markov.markov_posterior(fx, y, parallel)
+            mu_j, C_j = timed("mean_and_cov", lambda: post.mean_and_cov(xj))
+            C_jc = timed("cov", lambda: post.cov(xj, xc))
+            gen = torch.Generator(device=dev).manual_seed(seed + 41)
+            smp = timed("rand", lambda: post.rand(gen, xj, S))
+        _, g_m = timed("grad", lambda: markov_value_and_grad(
+            markov_theta(f32, dev, c), t, y,
+            lambda f, yy: markov.markov_logpdf(f, yy, parallel)))
+        launched = {r: {k: v for k, v in runs[r].items() if v}
+                    for r in runs if r.startswith(tag)}
+        ok_l = not any(launched.values())
+        e_lp, e_vs_dense = _rel(lp_m, ref["lp"]), _rel(lp_m, lp_d)
+        r_g, r_gd = _rel(g_m, g_ref), _rel(g_m, g_d)
+        e_m = float((mu.double() - ref["mean"]).abs().max() / ref["mean"].abs().max())
+        e_v = float((var.double() - ref["var"]).abs().max() / ref["var"].max())
+        e_md = float((mu - mu_d).abs().max() / mu_d.abs().max())
+        e_vd = float((var - var_d).abs().max() / var_d.max())
+        cmax = float(ref["cov_j"].abs().max())
+        e_mj = float((mu_j.double() - ref["mean_j"]).abs().max() / ref["mean_j"].abs().max())
+        e_cj = float((C_j.double() - ref["cov_j"]).abs().max()) / cmax
+        e_cjc = float((C_jc.double() - ref["cov_jc"]).abs().max()) / cmax
+        # FFBS: the sample moments at each point within 5 standard errors
+        # (mean: sd/√S; variance: sd²·√(2/(S−1))) plus the f32 contract on
+        # the scale
+        s64 = smp.double()
+        sd = torch.sqrt(torch.diagonal(ref["cov_j"]))
+        tol_m = 5.0 * sd / math.sqrt(S) + MARKOV_F32 * float(ref["mean_j"].abs().max())
+        tol_v = 5.0 * sd * sd * math.sqrt(2.0 / (S - 1)) + MARKOV_F32 * cmax
+        q_m = float(((s64.mean(1) - ref["mean_j"]).abs() / tol_m).max())
+        q_v = float(((s64.var(1) - sd * sd).abs() / tol_v).max())
+        ok_p = (ok_l and e_lp <= MARKOV_F32 and e_vs_dense <= MARKOV_VS_DENSE
+                and bool(torch.isfinite(g_m).all()) and max(r_g) <= MARKOV_F32
+                and max(e_m, e_v, e_mj, e_cj, e_cjc) <= MARKOV_F32
+                and tuple(smp.shape) == (c["m_joint"], S) and q_m <= 1.0 and q_v <= 1.0)
+        print(f"[{tag}] logpdf {lp_m:.6f}: rel vs f64 {e_lp:.3e}, vs the dense fused "
+              f"{e_vs_dense:.3e} (bounds {MARKOV_F32:g}, {MARKOV_VS_DENSE:g}); ∇ "
+              f"{g_m.tolist()}: rel vs f64 {r_g} (bound {MARKOV_F32:g}), vs the fused ∇ "
+              f"{r_gd}; mean_and_var at M={M} vs f64: mean {e_m:.3e}, var {e_v:.3e} (vs the "
+              f"dense fused {e_md:.3e}, {e_vd:.3e}); mean_and_cov at {c['m_joint']}: mean "
+              f"{e_mj:.3e}, cov {e_cj:.3e}; cov {c['m_joint']}×{c['m_cross']} {e_cjc:.3e} (of "
+              f"max|C|; bound {MARKOV_F32:g}); {S} samples: largest mean error / tolerance "
+              f"{q_m:.3f}, variance {q_v:.3f} (5 standard errors + {MARKOV_F32:g} of the "
+              f"scale); port kernels launched {json.dumps(launched)}; "
+              f"{'ok' if ok_p else 'FAIL'}", flush=True)
+        per_step = "" if parallel else (
+            f"; ms a step: filter {times['logpdf'] / n:.4f} (logpdf, {n} steps), filter + "
+            f"smoother {times['mean_and_var'] / (n + M):.4f} (mean_and_var, {n + M} steps), "
+            f"filter + FFBS {times['rand'] / (n + c['m_joint']):.4f} (rand, "
+            f"{n + c['m_joint']} steps)")
+        print(f"[{tag}] host ms: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+              + per_step, flush=True)
+        ok = ok and ok_p
+    panel = next(v for k, v in c1.calls.items() if sorted(k) == [n // 8, n])
+    checks = {"gram_tile panel": forward_kernel_check("gram_tile", panel, gram_tol=3e-5),
+              "slab_factor": forward_kernel_check("slab_factor", c2.calls[None]),
+              "tri_inv_block": forward_kernel_check("tri_inv_block", c4.calls[None])}
+    checks = report_checks("markov val", checks)
+    ok = ok and all(r["ok"] for r in checks.values())
+    missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in MARKOV_DENSE_KERNELS.items()}
+    missing = {r: ks for r, ks in missing.items() if ks}
+    if missing:
+        print(f"[markov val] FAIL: a dense comparator did not launch {missing}", flush=True)
+        ok = False
+    return ok, runs, checks
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2354,6 +2741,13 @@ def main(argv=None) -> int:
     ok = ok and cg_ok and pw_ok
     print(f"[cg slice] cg and pathwise phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- the Markov backend at N = 10^6 and its cross-check at N = 8192 ----
+    t0 = time.perf_counter()
+    mk_ok, runs_mk, checks_mk = run_markov(args.seed, dev)
+    torch.cuda.empty_cache()
+    ok = ok and mk_ok
+    print(f"[markov] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- the main path: full width, then the ragged width -----------------
     N, M, D, N_RAGGED, M_RAGGED = 8192, 4096, 8, 4500, 1024
     x, y, xs, s2, ell = make_problem(args.seed, N, M, D, dev, f32)
@@ -2418,7 +2812,7 @@ def main(argv=None) -> int:
             "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
             "fit full": counts_fit, "deep grad full": counts_deep,
             "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper,
-            **runs_svgp, **runs_sparse, **runs_online, **runs_cg, **runs_pw}
+            **runs_svgp, **runs_sparse, **runs_online, **runs_cg, **runs_pw, **runs_mk}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -2440,7 +2834,8 @@ def main(argv=None) -> int:
             "online extends": tuple(ONLINE_EXTEND_LAUNCHES),
             "cg logpdf": ("gram_tile",), "cg grad": CG_KERNELS, "cg posterior": ("gram_tile",),
             "cg mean": ("gram_tile",), "cg mean_and_var": ("gram_tile",),
-            "pathwise setup": PATHWISE_KERNELS, "pathwise eval": ("gram_tile",)}
+            "pathwise setup": PATHWISE_KERNELS, "pathwise eval": ("gram_tile",),
+            **MARKOV_DENSE_KERNELS}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
     missing = {r: ks for r, ks in missing.items() if ks}
     if missing or set(bwd_in.calls) != {"sym", "plain", "transpose"} or not contr_in.calls:
@@ -2542,9 +2937,9 @@ def main(argv=None) -> int:
     profile_breakdown("pred grad", pred_grad_once, top=14)
 
     path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online,
-                 "cg": runs_cg, "pathwise": runs_pw}
+                 "cg": runs_cg, "pathwise": runs_pw, "markov": runs_mk}
     path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online,
-                   "cg": checks_cg, "pathwise": checks_pw}
+                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk}
 
     def slice_paths(name):
         # each later slice's path: its launches of the kernel (by run) and its

@@ -1,8 +1,9 @@
 """The port's conformance suites (``utils/test_utils.py``) on every concrete
 GP type of the port, as ``tests/test_conformance.py`` runs the JAX
 package's suites: the prior, the exact posterior, the VFE and DTC
-posteriors and the SVGP posterior, at f64 on the CPU. The last tier holds
-the analytic invariant ELBO(VFE(f(x, jitter)), fx, y) ≈ logpdf(fx, y).
+posteriors, the SVGP, CG and Markov posteriors, at f64 on the CPU. The
+last tier holds the analytic invariant ELBO(VFE(f(x, jitter)), fx, y) ≈
+logpdf(fx, y).
 
 A GP that breaks a contract must fail the suite: a posterior whose
 ``var`` disagrees with ``diag(cov)``, and one whose ELBO at inducing = data
@@ -80,6 +81,48 @@ def test_cg_posterior_conformance(data):
     post = agt.CGInference(max_iters=64).posterior(f(x, 0.1), y)
     assert isinstance(post, agt.CGPosteriorGP)
     check_internal(gen, post, x, z)
+
+
+@pytest.fixture
+def data_1d(rng):
+    x = torch.as_tensor(np.sort(rng.uniform(size=17)) * 3.0, dtype=F64)[:, None]
+    z = torch.as_tensor(rng.uniform(size=11) * 3.0, dtype=F64)[:, None]
+    return x, z, torch.Generator().manual_seed(42)
+
+
+@pytest.mark.parametrize("parallel", [False, True])
+def test_markov_posterior_conformance(data_1d, parallel):
+    # the state-space posterior (smoother-gain cross-covariances) passes the
+    # same internal suite on a 1-D Matérn problem (tests/test_conformance.py:88-98)
+    x, z, gen = data_1d
+    f = agt.GP(1.3 * agt.with_lengthscale(agt.Matern32Kernel(), 0.8))
+    y = f(x, 0.1).rand(gen)
+    post = agt.markov_posterior(f(x, 0.1), y, parallel=parallel)
+    assert isinstance(post, agt.MarkovPosteriorGP)
+    check_internal(gen, post, x, z)
+
+
+def test_markov_posterior_matches_dense(rng):
+    # every surface of MarkovPosteriorGP equals the dense exact posterior
+    # (tests/test_conformance.py:101-115)
+    x = torch.as_tensor(np.sort(rng.uniform(size=23)) * 4.0, dtype=F64)[:, None]
+    z = torch.as_tensor(rng.uniform(size=9) * 4.0, dtype=F64)[:, None]
+    f = agt.GP(0.7 * agt.with_lengthscale(agt.Matern52Kernel(), 1.1))
+    y = f(x, 0.3).rand(torch.Generator().manual_seed(1))
+    dense = agt.posterior(f(x, 0.3), y)
+    mk = agt.markov_posterior(f(x, 0.3), y)
+
+    def close(a, b):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(), atol=1e-8)
+
+    close(mk.mean(z), dense.mean(z))
+    close(mk.var(z), dense.var(z))
+    close(mk.cov(z), dense.cov(z))
+    close(mk.cov(z, x), dense.cov(z, x))
+    m1, C1 = mk.mean_and_cov(z)
+    m2, C2 = dense.mean_and_cov(z)
+    close(m1, m2)
+    close(C1, C2)
 
 
 def test_finite_projection_of_sparse_posterior_conformance(data):

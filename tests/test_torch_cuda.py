@@ -85,7 +85,8 @@ def test_gram_tile_matches_plain(cuda, gen, family):
                         lambda: fused_gram.gram_tile(x, zz, family, params, symmetric))
         want = fused_gram.gram_tile_plain(x, zz, family, pbuf, symmetric)
         assert got.shape == want.shape and got.is_cuda
-        # d² rounding ≲ 8·eps·(‖x‖² + ‖z‖²) at D = 8, |dg/d(d²)| ≤ 2 → 3e-5
+        # d² from the differences rounds ≲ (D + 1)·eps·d² ≤ 4.3e-6 in the unit
+        # cube at D = 8, |dg/d(d²)| ≤ 2 → 3e-5
         assert float((got - want).abs().max()) <= 3e-5
         if symmetric:
             assert torch.equal(torch.diagonal(got), torch.diagonal(want))
@@ -98,8 +99,9 @@ def test_gram_tile_widths_edges_and_alignment(cuda, gen, family, d):
     # past D zero, and the wide path past 32; m = 1, 63, 4097 leave rows that
     # are not 16-byte aligned (scalar stores); a row operand that starts 4
     # bytes into its buffer takes the 4-byte copies; symmetric on and off.
-    # Tolerance, entry by entry: d² sums D products and two norms in another
-    # order than the plain version, ≲ (2D + 4)·eps·(‖x‖² + ‖z‖²), times
+    # Tolerance, entry by entry: d² sums D squared differences, fused in the
+    # kernel and not in the plain version, ≲ (D + 1)·eps·d² ≤
+    # (2D + 4)·eps·(‖x‖² + ‖z‖²) (d² ≤ 2‖x‖² + 2‖z‖²), the allowance, times
     # |∂g/∂d²|, plus the 3e-5 of the other gram_tile tests for the map's
     # own rounding (expf, powf, cosf against torch's)
     n = 200
@@ -321,8 +323,8 @@ def test_gram_bwd_matches_plain(cuda, gen, family, mode):
     sym = mode == "sym"
     got = _launched("gram_bwd", lambda: fused_gram.gram_bwd(x, z, C, family, params, sym, mode))
     want = fused_gram.gram_bwd_plain(x, z, C, family, pbuf, sym, mode)
-    # x̄ sums ~m f32 terms in another order and form (Σ w(x − z) against
-    # rowsum(w)·x − w·z): ≲ m·eps of the terms, under 1e-4 of the largest
+    # x̄ sums ~m f32 terms Σ w(x − z) in another order: ≲ m·eps of the
+    # terms, under 1e-4 of the largest
     # row; the hyperparameter bar is an f64 sum of f32 products that differ
     # by a few ulp (the card's expf/powf against torch's)
     scale = float(want[0].abs().max()) + 1e-6
@@ -699,3 +701,66 @@ def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
     assert torch.isfinite(got).all()
     tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
     assert float(((got.double() - want).abs() / want.abs()).max()) <= tol
+
+
+def _markov_problem(gen, n, cuda):
+    # sorted U(0, n/160) times (the density of the validation width, 8192
+    # over 50), y ~ N(0, 1), σ²·Matérn-3/2 with ℓ = 0.5, noise 0.1, f32
+    t = torch.as_tensor(np.sort(gen.uniform(0.0, n / 160.0, size=n)), dtype=torch.float32,
+                        device=cuda)
+    y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
+    return t, y
+
+
+def test_markov_calls_launch_no_port_kernel(cuda, gen):
+    # the state-space backend runs torch ops only: the parallel logpdf at
+    # n = 20 000 (5 chunks of the scan) and its ∇, the sequential logpdf,
+    # the marginals, the joint posterior and FFBS launch no port kernel;
+    # the logpdfs hold the f32 contract of 1e-3 against the f64 filter on
+    # the same card, and the ∇ the f64 parallel ∇ within 1e-3 a component
+    from abstractgps_tpu_torch.models import markov
+
+    t, y = _markov_problem(gen, 20_000, cuda)
+    ts, ys = t[:512], y[:512]
+    xq = torch.linspace(0.0, 3.0, 16, device=cuda)
+
+    def logpdf_and_grad(dtype):
+        th = [torch.tensor(v, dtype=dtype, device=cuda, requires_grad=True)
+              for v in (1.0, 0.5, 0.1)]
+        fx = agt.GP(th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1]))(t.to(dtype), th[2])
+        lp = markov.markov_logpdf(fx, y.to(dtype), parallel=True)
+        return lp, torch.stack(torch.autograd.grad(lp, th))
+
+    cuda_ops.reset_launches()
+    lp, g = logpdf_and_grad(torch.float32)
+    fx = agt.GP(agt.with_lengthscale(agt.Matern32Kernel(), 0.5))(ts, 0.1)
+    lp_seq = markov.markov_logpdf(fx, ys)
+    post = agt.markov_posterior(fx, ys)
+    outs = [lp, g, lp_seq, *post.mean_and_var(xq), *post.mean_and_cov(xq),
+            post.rand(0, xq, 4)]
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in cuda_ops.LAUNCHES.values()), cuda_ops.LAUNCHES
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    lp64, g64 = logpdf_and_grad(torch.float64)
+    assert abs(float(lp) - float(lp64)) <= 1e-3 * abs(float(lp64))
+    assert float(((g.double() - g64).abs() / g64.abs()).max()) <= 1e-3
+    fx64 = agt.GP(agt.with_lengthscale(agt.Matern32Kernel(), 0.5))(ts.double(), 0.1)
+    want = markov.markov_logpdf(fx64, ys.double())
+    assert abs(float(lp_seq) - float(want)) <= 1e-3 * abs(float(want))
+
+
+def test_markov_cuda_tensors_in_give_cuda_tensors_out(cuda, gen):
+    from abstractgps_tpu_torch.models import markov
+
+    t, y = _markov_problem(gen, 300, cuda)
+    xq = torch.linspace(0.0, 2.0, 8, device=cuda)
+    fx = agt.GP(1.3 * agt.with_lengthscale(agt.Matern52Kernel(), 0.7))(t, 0.1)
+    for parallel in (False, True):
+        post = agt.markov_posterior(fx, y, parallel=parallel)
+        outs = [markov.markov_logpdf(fx, y, parallel=parallel),
+                markov.markov_logpdf(fx, torch.stack([y, -y], 1), parallel=parallel),
+                *post.mean_and_var(xq), *post.mean_and_cov(xq), post.cov(xq, xq[:3]),
+                post.rand(torch.Generator(device=cuda).manual_seed(0), xq, 2),
+                markov.markov_rand(fx, y, xq, 0, parallel=parallel)]
+        for o in outs:
+            assert o.device.type == "cuda" and o.dtype == torch.float32, (o.device, o.dtype)

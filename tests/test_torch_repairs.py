@@ -1,6 +1,6 @@
-"""Two repairs of the port's gradients, held against the JAX package on the
-CPU at N = 1024 with both packages' Pallas paths in interpret mode (the
-fused paths at their default sizes) and against f64 autograd.
+"""Three repairs of the port, held against the JAX package on the CPU at
+N = 1024 with both packages' Pallas paths in interpret mode (the fused paths
+at their default sizes) and against f64 autograd.
 
 - A deep kernel, ``σ²·(SE∘ℓ)∘FunctionTransform(mlp)`` with the MLP of
   ``examples/deep_kernel_learning.py`` (1 → 16 → 16 → 2, tanh), whose
@@ -13,6 +13,10 @@ fused paths at their default sizes) and against f64 autograd.
   and ℓ's gradient ⟨Ā, ∂K/∂ℓ⟩, against their f64 truth, beside the JAX
   package's own f32 errors. (The gradient of a whole prediction carries the
   f32 forward's rounding, which sets its error there, not the pullback.)
+- The fused gram's squared distances on inputs far from the origin (a 1-D
+  time axis): the kernels and their plain versions form d² from the
+  differences, where ‖x‖² + ‖z‖² − 2x·z rounds to eps·‖x‖². The f32
+  logpdf and its gradient through the fused paths against f64 autograd.
 
 The JAX sides, which take seconds in interpret mode, are computed once per
 module.
@@ -249,3 +253,41 @@ def test_chol_pullback_by_substitution(chol_pullback_inputs, noise):
     assert err <= 2.0 * err_j, (err, err_j)
     err_ell = _rel_ell(Abar, truth, dK)
     assert err_ell <= max(2.0 * err_ell_j, 1e-5) and err_ell < 1e-2, (err_ell, err_ell_j)
+
+
+# ---------------------------------------------------------------------------
+# Fault 3: d² of the fused paths far from the origin
+# ---------------------------------------------------------------------------
+
+
+def test_fused_paths_hold_f32_accuracy_far_from_the_origin():
+    # N = 1024 times over [75, 100] (σ²·Matérn-3/2, ℓ = 0.5, noise 0.1: the
+    # density of a Markov validation run, 41 points a unit). With d² formed
+    # as ‖x‖² + ‖z‖² − 2x·z the scaled inputs' norms (~4e4) round d² by
+    # ~1e-2, and the fused f32 logpdf erred 1.1e-2 relative, its gradient
+    # 150 % (σ²), 66 % (ℓ) and 5.5 % (noise) (the f64 side takes the unfused
+    # path). From the differences, every result is within 10·κ·eps of f64,
+    # κ ≤ (N·σ² + noise)/noise.
+    rng = np.random.default_rng(31)
+    t = np.sort(rng.uniform(75.0, 100.0, size=N))
+    y = rng.normal(size=N)
+
+    def value_and_grad(dtype):
+        th = [torch.tensor(v, dtype=dtype, requires_grad=True) for v in (1.0, 0.5, 0.1)]
+        k = th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1])
+        lp = agt.GP(k)(torch.as_tensor(t, dtype=dtype), th[2]).logpdf(
+            torch.as_tensor(y, dtype=dtype))
+        return np.array([float(lp.detach())] + [float(g) for g in torch.autograd.grad(lp, th)])
+
+    with interpret_paths():
+        got = value_and_grad(torch.float32)
+    want = value_and_grad(torch.float64)
+    rel = np.abs(got - want) / np.abs(want)
+    assert np.all(rel <= _kappa_tol(1.0, 0.1)), (rel, _kappa_tol(1.0, 0.1))
+    # the tile itself: every entry within 8·eps of the f64 map of the same
+    # f32 inputs (|dg/dd²| ≤ 1.5 and d² rounds to ~2·eps·d²)
+    x = torch.as_tensor(2.0 * t[:, None], dtype=torch.float32)
+    K = fused_gram.gram_tile_plain(x, x, 2, fused_gram._params_buffer((), x.device), True)
+    x64 = _n(x).astype(np.float64)[:, 0]
+    d = np.abs(x64[:, None] - x64[None, :]) * np.sqrt(3.0)
+    assert np.abs(_n(K) - (1.0 + d) * np.exp(-d)).max() <= 8 * 2.0 ** -24
