@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .hmc import as_draws, select
+from .hmc import as_draws, chain_slice, select
 from .sample import chain_values
 
 __all__ = ["ESSState", "ess_init", "ess_kernel", "run_ess"]
@@ -81,21 +81,24 @@ def ess_kernel(loglik_values: Callable, sample_prior: Callable, max_shrink: int 
 
 def run_ess(loglik: Callable, sample_prior: Callable, q0: torch.Tensor, generator, *,
             num_samples: int = 1000, num_burnin: int = 100, num_chains: int | None = None,
-            chain_eval: str = "vmap"):
+            chain_eval: str = "vmap", mesh=None, mesh_axis: str = "dp"):
     """Run ESS; ``q0`` is (dim,) or (num_chains, dim); ``loglik`` maps one
     (dim,) position to a scalar, evaluated over the chains by
     ``chain_eval`` (``"vmap"`` or ``"loop"``, as in ``run_mcmc``);
     ``generator`` is a ``torch.Generator`` or a seed on q0's device, or a
-    draws object. Returns (samples (chains, draws, dim), logliks (chains, draws)). The JAX
-    package's ``mesh``/``mesh_axis`` wait for the port's ``parallel``
-    layer."""
+    draws object. Returns (samples (chains, draws, dim), logliks (chains, draws)).
+    ``mesh``: optional ``DeviceMesh``; the chains are sharded over
+    ``mesh_axis`` as in ``run_mcmc``: each rank runs and returns its own
+    block of chains, with no collective."""
     if num_samples < 1:
         raise ValueError(f"num_samples must be at least 1, got {num_samples}")
     if num_chains is None:
         q0 = q0[None, :]
     elif q0.ndim == 1:
         q0 = q0.expand((num_chains,) + q0.shape)
-    draws = as_draws(generator, q0.device)
+    start, stop, draws = chain_slice(as_draws(generator, q0.device), q0.shape[0], mesh,
+                                     mesh_axis)
+    q0 = q0[start:stop]
     values = chain_values(loglik, chain_eval)
     kernel = ess_kernel(values, sample_prior)
     with torch.no_grad():

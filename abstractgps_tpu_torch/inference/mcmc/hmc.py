@@ -26,6 +26,7 @@ import torch
 
 __all__ = [
     "GeneratorDraws",
+    "ChainSliceDraws",
     "IntegratorState",
     "leapfrog",
     "kinetic_energy",
@@ -100,6 +101,79 @@ class GeneratorDraws:
     def move_uniform(self, particles: torch.Tensor) -> torch.Tensor:
         """SMC: U(0, 1) of each particle's Metropolis test, (N,)."""
         return self._rand(particles)
+
+
+class ChainSliceDraws:
+    """The draws of chains ``[start, stop)`` of ``total``: each site draws
+    the full (total, ...) batch from ``draws`` and keeps this slice (the
+    chain-sharded samplers, one slice a rank). ``active`` masks are widened
+    with False for the other chains, so a draws object that keeps one
+    stream a chain advances exactly the streams of this slice's active
+    chains, as in the unsharded run."""
+
+    def __init__(self, draws, start: int, stop: int, total: int):
+        self.draws, self.start, self.stop, self.total = draws, start, stop, total
+
+    def _full(self, q: torch.Tensor) -> torch.Tensor:
+        return q.new_zeros((self.total,) + tuple(q.shape[1:]))
+
+    def _mask(self, active: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(self.total, dtype=torch.bool, device=active.device)
+        out[self.start:self.stop] = active
+        return out
+
+    def _mine(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.start:self.stop]
+
+    def momentum(self, q):
+        return self._mine(self.draws.momentum(self._full(q)))
+
+    def direction(self, q, active):
+        return self._mine(self.draws.direction(self._full(q), self._mask(active)))
+
+    def leaf_uniform(self, q, active):
+        return self._mine(self.draws.leaf_uniform(self._full(q), self._mask(active)))
+
+    def bias_uniform(self, q, active):
+        return self._mine(self.draws.bias_uniform(self._full(q), self._mask(active)))
+
+    def trajectory_length(self, q, high):
+        return self._mine(self.draws.trajectory_length(self._full(q), high))
+
+    def accept_uniform(self, q):
+        return self._mine(self.draws.accept_uniform(self._full(q)))
+
+    def prior(self, sample_prior, q):
+        return self._mine(self.draws.prior(sample_prior, self._full(q)))
+
+    def level_uniform(self, q):
+        return self._mine(self.draws.level_uniform(self._full(q)))
+
+    def angle_uniform(self, q):
+        return self._mine(self.draws.angle_uniform(self._full(q)))
+
+    def shrink_uniform(self, q, active):
+        return self._mine(self.draws.shrink_uniform(self._full(q), self._mask(active)))
+
+    def resample_uniform(self, w):
+        return self.draws.resample_uniform(w)
+
+    def proposal_normal(self, particles):
+        return self._mine(self.draws.proposal_normal(self._full(particles)))
+
+    def move_uniform(self, particles):
+        return self._mine(self.draws.move_uniform(self._full(particles)))
+
+
+def chain_slice(draws, n: int, mesh, mesh_axis: str):
+    """(start, stop, draws) of this rank's chains when ``mesh`` shards ``n``
+    chains over ``mesh_axis``; (0, n, draws) when ``mesh`` is None."""
+    if mesh is None:
+        return 0, n, draws
+    from ...parallel.mesh import local_block
+
+    start, stop = local_block(n, mesh, mesh_axis)
+    return start, stop, ChainSliceDraws(draws, start, stop, n)
 
 
 def as_generator(generator, device) -> torch.Generator:

@@ -36,7 +36,7 @@ from .adaptation import (
     welford_variance,
     window_schedule,
 )
-from .hmc import as_draws, as_generator, hmc_init, hmc_kernel
+from .hmc import as_draws, as_generator, chain_slice, hmc_init, hmc_kernel
 from .nuts import NUTSInfo, nuts_kernel
 
 __all__ = ["MCMCResult", "run_mcmc", "init_chain_positions", "logdensity_and_grad",
@@ -180,7 +180,7 @@ def run_mcmc(logdensity: Callable, init_position, generator, *, num_samples: int
              num_warmup: int = 1000, num_chains: int | None = None, algorithm: str = "nuts",
              max_depth: int = 10, num_integration_steps: int = 32,
              initial_step_size: float = 0.1, target_accept: float = 0.8, thin: int = 1,
-             chain_eval: str = "vmap") -> MCMCResult:
+             chain_eval: str = "vmap", mesh=None, mesh_axis: str = "dp") -> MCMCResult:
     """Run NUTS (or fixed-length HMC) over ``logdensity``.
 
     ``init_position`` is a tree whose leaves carry a leading chain axis
@@ -195,17 +195,24 @@ def run_mcmc(logdensity: Callable, init_position, generator, *, num_samples: int
     active chain in turn with ``torch.autograd.grad``: densities that launch
     the port's kernels, such as the GP logpdf on the fused path).
 
-    The JAX package's ``mesh``/``mesh_axis`` (chain sharding) wait for the
-    port's ``parallel`` layer; its ``segment_size``/``program_cache`` bound
-    a compiled device program, which eager torch does not build.
+    ``mesh``: optional ``DeviceMesh`` (``parallel.make_mesh``); the chains
+    are sharded over ``mesh_axis`` (``num_chains`` must divide by its
+    size): each rank runs its own block of chains, with no collective at
+    all, warmup included, and its result holds those chains (gathering them
+    is the caller's business). Every rank draws the full batch of random
+    numbers and keeps its chains' (``hmc.ChainSliceDraws``).
+
+    The JAX package's ``segment_size``/``program_cache`` bound a compiled
+    device program, which eager torch does not build.
     """
     if num_samples < 1:
         raise ValueError(f"num_samples must be at least 1, got {num_samples}")
     flat0, one = _flatten_chains(init_position, num_chains)
     _, unravel = ravel(one)
-    n_chains, dim = flat0.shape
     dtype, dev = flat0.dtype, flat0.device
-    draws = as_draws(generator, dev)
+    start, stop, draws = chain_slice(as_draws(generator, dev), flat0.shape[0], mesh, mesh_axis)
+    flat0 = flat0[start:stop]
+    n_chains, dim = flat0.shape
     ld_and_grad = logdensity_and_grad(logdensity, unravel, chain_eval)
 
     if algorithm == "nuts":

@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .hmc import as_draws
+from .hmc import as_draws, chain_slice
 from .sample import chain_values
 
 __all__ = ["SMCResult", "run_smc", "systematic_resample"]
@@ -51,19 +51,40 @@ def _ess_fraction(log_w: torch.Tensor) -> torch.Tensor:
 
 def run_smc(logprior: Callable, loglik: Callable, particles0: torch.Tensor, generator, *,
             ess_target: float = 0.5, num_moves: int = 8, max_stages: int = 50,
-            proposal_scale: float | None = None, chain_eval: str = "vmap") -> SMCResult:
+            proposal_scale: float | None = None, chain_eval: str = "vmap", mesh=None,
+            mesh_axis: str = "dp") -> SMCResult:
     """Temper from the prior to the posterior.
 
     ``particles0``: (N, dim) draws from the prior. ``logprior``/``loglik``
     map one (dim,) position to a scalar, evaluated over the particles by
     ``chain_eval`` (``"vmap"`` or ``"loop"``, as in ``run_mcmc``);
     ``generator`` is a ``torch.Generator`` or a seed on the particles'
-    device, or a draws object. The JAX package's ``mesh``/``mesh_axis`` wait for the port's
-    ``parallel`` layer.
+    device, or a draws object.
+
+    ``mesh``: optional ``DeviceMesh``; the particles are sharded over
+    ``mesh_axis`` (N must divide by its size) and propagated and weighted
+    on their rank. A tempering stage takes three collectives, whatever N
+    is: an all-gather of the log-likelihoods (every rank then bisects β,
+    accumulates the normaliser and draws the resampling ancestors from the
+    same uniform, identically), an all-gather of the particles (each rank
+    takes its ancestors; the proposal scale is the std of the resampled
+    set), and an all-reduce of the acceptance count. Every rank draws the
+    full batch of random numbers and keeps its particles'. ``particles``
+    of the result are this rank's.
     """
     n, dim = particles0.shape
     dtype, dev = particles0.dtype, particles0.device
-    draws = as_draws(generator, dev)
+    start, stop, draws = chain_slice(as_draws(generator, dev), n, mesh, mesh_axis)
+    if mesh is None:
+        def gather(t):
+            return t
+    else:
+        from ...parallel.collectives import all_gather, all_reduce
+
+        group = mesh.get_group(mesh_axis)
+
+        def gather(t):
+            return all_gather(t, group)
     scale = 2.38 / math.sqrt(dim) if proposal_scale is None else proposal_scale
     v_logprior = chain_values(logprior, chain_eval)
     v_loglik = chain_values(loglik, chain_eval)
@@ -81,9 +102,8 @@ def run_smc(logprior: Callable, loglik: Callable, particles0: torch.Tensor, gene
             lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
         return torch.where(ess_at(one) >= ess_target, one, lo)
 
-    def rejuvenate(particles, ll, lp, beta):
-        """num_moves per-dimension-std-preconditioned RWM steps at β."""
-        std = torch.std(particles, dim=0, unbiased=False) + 1e-8
+    def rejuvenate(particles, ll, lp, beta, std):
+        """num_moves RWM steps at β, preconditioned per dimension by ``std``."""
         acc = torch.zeros((), dtype=dtype, device=dev)
         for _ in range(num_moves):
             prop = particles + scale * std * draws.proposal_normal(particles)
@@ -96,24 +116,29 @@ def run_smc(logprior: Callable, loglik: Callable, particles0: torch.Tensor, gene
             particles = torch.where(take[:, None], prop, particles)
             ll = torch.where(take, ll_p, ll)
             lp = torch.where(take, lp_p, lp)
-            acc = acc + take.to(dtype).mean()
+            acc = acc + take.to(dtype).sum() / n
+        if mesh is not None:
+            acc = all_reduce(acc, group)
         return particles, ll, lp, acc / num_moves
 
     with torch.no_grad():
-        particles = particles0.detach()
+        particles = particles0.detach()[start:stop]
         ll = v_loglik(particles)
         beta = torch.zeros((), dtype=dtype, device=dev)
         log_z = torch.zeros((), dtype=dtype, device=dev)
         accept = one
         stage = 0
         while stage < max_stages and float(beta) < 1.0:
-            beta_new = next_beta(beta, ll)
-            log_w = (beta_new - beta) * ll
+            ll_all = gather(ll)
+            beta_new = next_beta(beta, ll_all)
+            log_w = (beta_new - beta) * ll_all
             log_z = log_z + torch.logsumexp(log_w, dim=0) - math.log(n)
             idx = systematic_resample(draws, log_w)
-            particles, ll = particles[idx], ll[idx]
+            resampled = gather(particles)[idx]
+            std = torch.std(resampled, dim=0, unbiased=False) + 1e-8
+            particles, ll = resampled[start:stop], ll_all[idx[start:stop]]
             lp = v_logprior(particles)
-            particles, ll, lp, accept = rejuvenate(particles, ll, lp, beta_new)
+            particles, ll, lp, accept = rejuvenate(particles, ll, lp, beta_new, std)
             beta = beta_new
             stage += 1
     return SMCResult(particles, log_z, stage, accept)

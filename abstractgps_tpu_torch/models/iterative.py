@@ -21,9 +21,11 @@ Lanczos quadrature (Dong et al. 2017, arXiv:1711.03481):
   the columns).
 
 The CG iterations record no autograd graph. ``cg_logpdf`` is differentiable
-through its own backward; the CG posterior's predictions are constants to
-autograd (their solves are CG iterations): differentiate ``cg_logpdf``, or
-the exact posterior, for gradients.
+through its own backward, and so are the CG posterior's predictions: every
+solve X = A⁻¹B is ``_CGSolve``, whose backward is implicit (one more mBCG
+solve for B̄ = A⁻¹X̄, then −B̄Xᵀ contracted with ∂A through the same panel
+VJP as the logpdf's backward), so y, x, x*, the noise and the kernel's
+hyperparameters all get gradients.
 """
 
 from __future__ import annotations
@@ -231,6 +233,46 @@ class _CGLogpdf(torch.autograd.Function):
         return (None, xbar, ndbar, dbar, None, None, None, *_param_grads(params, bars))
 
 
+def _cg_solve(kernel, x, noise_diag, B, Lk, opts):
+    """X = A⁻¹B by mBCG, A = K(x, x) + diag(noise); ``opts`` = (max_iters,
+    tol, panel, max_dense_n, precond_rank)."""
+    max_iters, tol, panel, max_dense_n, precond_rank = opts
+    mv = make_gram_matvec(kernel, x, noise_diag, panel=panel, max_dense_n=max_dense_n)
+    psolve, _ = _make_precond(kernel, x, noise_diag, precond_rank, Lk=Lk)
+    X, _ = mbcg(mv, B, max_iters=max_iters, tol=tol, precond=psolve)
+    return X
+
+
+class _CGSolve(torch.autograd.Function):
+    """X = A⁻¹B with an implicit backward: B̄ = A⁻¹X̄ (one more mBCG solve
+    with the same preconditioner), and since ∂X = −A⁻¹(∂A)X, the gram gets
+    the cotangent −B̄Xᵀ (contracted panel by panel, ``_contract_gram_vjp``)
+    and the noise its diagonal −Σ_cols B̄ ⊙ X. The preconditioner factor
+    ``Lk`` takes no gradient: the solution does not depend on it."""
+
+    @staticmethod
+    def forward(ctx, kernel, x, noise_diag, B, Lk, opts, *params):
+        if Lk is None and opts[4] > 0:
+            Lk = pivoted_cholesky(kernel, x, opts[4])  # built once, for the backward too
+        X = _cg_solve(kernel, x, noise_diag, B, Lk, opts)
+        ctx.kernel, ctx.opts, ctx.Lk = kernel, opts, Lk
+        ctx.save_for_backward(x, noise_diag, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, Xbar):
+        x, noise_diag, X = ctx.saved_tensors
+        X = X.detach()  # a saved output unpacks with this node as its grad_fn
+        params = hyperparameters(ctx.kernel)
+        Bbar = _cg_solve(ctx.kernel, x, noise_diag, Xbar.to(X.dtype), ctx.Lk, ctx.opts)
+        xbar, bars = _contract_gram_vjp(ctx.kernel, x, params, -Bbar, X, panel=ctx.opts[2],
+                                        need_x=ctx.needs_input_grad[1])
+        ndbar = -torch.sum(Bbar * X, dim=1) if ctx.needs_input_grad[2] else None
+        if xbar is not None:
+            xbar = xbar.reshape(x.shape)
+        return (None, xbar, ndbar, Bbar, None, None, *_param_grads(params, bars))
+
+
 def _require_kernel_prior(fx):
     """CG backend scope: kernel-based GP prior + diagonal-structured noise.
     Correlated (DenseNoise) observation noise is rejected, not dropped."""
@@ -296,7 +338,7 @@ class CGPosteriorGP(AbstractGP):
     The predictive equations of the exact posterior
     (src/exact_gpr_posterior.jl:60-90) with every whitening solve replaced
     by a CG solve against the train-train operator; nothing N×N is
-    factorised or stored. Its outputs carry no autograd graph.
+    factorised or stored. Every solve is differentiable (``_CGSolve``).
     """
 
     prior: GP
@@ -311,25 +353,21 @@ class CGPosteriorGP(AbstractGP):
     precond_rank: int = 0
 
     def _solve(self, B: torch.Tensor) -> torch.Tensor:
-        mv = make_gram_matvec(self.prior.kernel, self.x, self.noise_diag,
-                              panel=self.panel, max_dense_n=self.max_dense_n)
         # reuse the pivoted-Cholesky factor CGInference.posterior built
-        psolve, _ = _make_precond(self.prior.kernel, self.x, self.noise_diag,
-                                  self.precond_rank, Lk=self.Lk)
-        X, _ = mbcg(mv, B, max_iters=self.max_iters, tol=self.tol, precond=psolve)
-        return X
+        kernel = self.prior.kernel
+        opts = (self.max_iters, self.tol, self.panel, self.max_dense_n, self.precond_rank)
+        return _CGSolve.apply(kernel, self.x, self.noise_diag, B, self.Lk, opts,
+                              *hyperparameters(kernel))
 
     def _cross(self, xs) -> torch.Tensor:
         """K(train, xs) — (N, M)."""
         return self.prior.kernel.cross(as_inputs(self.x), as_inputs(xs))
 
-    @torch.no_grad()
     @precise
     def mean(self, xs):
         # m(x*) + K*ₓᵀ α (src/exact_gpr_posterior.jl:60-62)
         return self.prior.mean(xs) + self._cross(xs).T @ self.alpha
 
-    @torch.no_grad()
     @precise
     def cov(self, xs, zs=None):
         C1 = self._cross(xs)
@@ -338,13 +376,11 @@ class CGPosteriorGP(AbstractGP):
         C2 = self._cross(zs)
         return self.prior.cov(xs, zs) - C1.T @ self._solve(C2)
 
-    @torch.no_grad()
     @precise
     def var(self, xs):
         C1 = self._cross(xs)
         return self.prior.var(xs) - torch.sum(C1 * self._solve(C1), dim=0)
 
-    @torch.no_grad()
     @precise
     def mean_and_cov(self, xs):
         C1 = self._cross(xs)
@@ -352,7 +388,6 @@ class CGPosteriorGP(AbstractGP):
         m = self.prior.mean(xs) + C1.T @ self.alpha
         return m, self.prior.cov(xs) - C1.T @ W
 
-    @torch.no_grad()
     @precise
     def mean_and_var(self, xs):
         C1 = self._cross(xs)
@@ -377,18 +412,15 @@ class CGInference:
     precond_rank: int = 64
     probe_seed: int = 0
 
-    @torch.no_grad()
     def posterior(self, fx, y) -> CGPosteriorGP:
         kernel, nd = _require_kernel_prior(fx)
         delta = as_tensor(y) - fx.f.mean(fx.x)
-        mv = make_gram_matvec(kernel, fx.x, nd, panel=self.panel,
-                              max_dense_n=self.max_dense_n)
         Lk = None
         if self.precond_rank > 0:
-            Lk = pivoted_cholesky(kernel, fx.x, self.precond_rank)
-        psolve, _ = _make_precond(kernel, fx.x, nd, self.precond_rank, Lk=Lk)
-        X, _ = mbcg(mv, delta[:, None], max_iters=self.max_iters, tol=self.tol,
-                    precond=psolve)
+            with torch.no_grad():
+                Lk = pivoted_cholesky(kernel, fx.x, self.precond_rank)
+        opts = (self.max_iters, self.tol, self.panel, self.max_dense_n, self.precond_rank)
+        X = _CGSolve.apply(kernel, fx.x, nd, delta[:, None], Lk, opts, *hyperparameters(kernel))
         return CGPosteriorGP(
             prior=fx.f, x=fx.x, noise_diag=nd, alpha=X[:, 0], Lk=Lk,
             max_iters=self.max_iters, tol=self.tol, panel=self.panel,

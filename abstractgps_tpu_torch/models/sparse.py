@@ -31,6 +31,7 @@ from ..ops import covmat
 from ..ops.distance import as_tensor
 from ..ops.noise import Noise, noise_block_diag
 from ..ops.precision import precise
+from ..parallel.collectives import psum
 from .finite_gp import _LOG_2PI, FiniteGP
 from .gp import AbstractGP
 
@@ -71,7 +72,7 @@ class DTC:
         return posterior_vfe(self, fx, y)
 
     def approx_log_evidence(self, fx: FiniteGP, y) -> torch.Tensor:
-        dtc_objective, _ = _compute_intermediates(fx, as_tensor(y), self.fz)
+        dtc_objective, _ = _collapsed_terms(fx, as_tensor(y), self.fz, trace=False)
         return dtc_objective
 
 
@@ -245,22 +246,33 @@ def _update_posterior_pseudopoints(f_post: ApproxPosteriorGP,
 
 
 @precise
-def _compute_intermediates(fx: FiniteGP, y: torch.Tensor, fz: FiniteGP):
-    """Shared DTC-objective assembly (src/sparse_approximations.jl:289-305)."""
-    n = y.shape[0]
+def _collapsed_terms(fx: FiniteGP, y: torch.Tensor, fz: FiniteGP, trace: bool):
+    """The collapsed bound's terms (src/sparse_approximations.jl:289-305):
+    the DTC objective, and with ``trace`` the ELBO's trace term
+    ``tr(Cf Σy⁻¹) − ‖A‖²_F``.
+
+    Every term that sums over the data (A·Aᵀ, A·δ, ‖δ‖², log|Σy|, n·log 2π and the
+    trace term's two sums) goes through one ``psum``: while a data axis is
+    active (``parallel.fit_sharded``) it is summed over the ranks' shards in
+    one packed all-reduce, and L_Λ is formed from the global sums on every
+    rank; otherwise ``psum`` is the identity."""
     Kxz = fx.cov(fz)                                 # (N, m)
     L_z = covmat.cholesky_lower(fz.cov())
     A = covmat.solve_lower(L_z, fx.noise.solve_sqrt(Kxz).T)   # (m, N)
-    m = A.shape[0]
-    L_Lambda = covmat.cholesky_lower(A @ A.T + _eye(m, A))
     delta = fx.noise.solve_sqrt(y - fx.mean())
-
-    tmp = (fx.noise.logdet()
+    n_log_2pi = torch.tensor(y.shape[0] * _LOG_2PI, dtype=A.dtype, device=A.device)
+    terms = [A @ A.T, A @ delta, torch.sum(delta * delta), fx.noise.logdet(), n_log_2pi]
+    if trace:
+        terms += [fx.noise.tr_solve(fx.f.var(fx.x)), torch.sum(A * A)]
+    AAt, Ad, dd, logdet_noise, n_log_2pi, *tr = psum(*terms)
+    m = A.shape[0]
+    L_Lambda = covmat.cholesky_lower(AAt + _eye(m, A))
+    tmp = (logdet_noise
            + covmat.logdet_from_chol(L_Lambda)
-           + torch.sum(delta * delta)
-           - torch.sum(torch.square(covmat.solve_lower(L_Lambda, A @ delta))))
-    dtc_objective = -0.5 * (n * _LOG_2PI + tmp)
-    return dtc_objective, A
+           + dd
+           - torch.sum(torch.square(covmat.solve_lower(L_Lambda, Ad))))
+    dtc_objective = -0.5 * (n_log_2pi + tmp)
+    return dtc_objective, (tr[0] - tr[1] if trace else None)
 
 
 def approx_log_evidence(approx, fx: FiniteGP, y) -> torch.Tensor:
@@ -273,6 +285,5 @@ def approx_log_evidence(approx, fx: FiniteGP, y) -> torch.Tensor:
 def elbo(vfe: VFE, fx: FiniteGP, y) -> torch.Tensor:
     """Titsias ELBO (src/sparse_approximations.jl:248-254):
     ``dtc_objective − (tr(Cf Σy⁻¹) − ‖A‖²_F) / 2``."""
-    dtc_objective, A = _compute_intermediates(fx, as_tensor(y), vfe.fz)
-    trace_term = fx.noise.tr_solve(fx.f.var(fx.x)) - torch.sum(A * A)
+    dtc_objective, trace_term = _collapsed_terms(fx, as_tensor(y), vfe.fz, trace=True)
     return dtc_objective - 0.5 * trace_term

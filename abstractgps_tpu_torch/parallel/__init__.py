@@ -1,0 +1,26 @@
+"""Multi-process SPMD execution over ``torch.distributed``: meshes, the
+data-parallel collapsed ELBO and training loop, and the multi-process
+runtime. Counterpart of the JAX package's ``parallel`` layer (its
+``sharded_linalg`` is not ported yet; ``P`` and ``NamedSharding`` have no
+counterpart: a shard here is this rank's block, ``shard_along``)."""
+
+from .data_parallel import ShardedFitResult, fit_sharded
+from .mesh import make_mesh, replicate, shard_along
+from .multihost import (
+    host_local_array,
+    initialize_distributed,
+    is_distributed,
+    make_pod_mesh,
+)
+
+__all__ = [
+    "make_mesh",
+    "shard_along",
+    "replicate",
+    "fit_sharded",
+    "ShardedFitResult",
+    "initialize_distributed",
+    "is_distributed",
+    "make_pod_mesh",
+    "host_local_array",
+]

@@ -67,15 +67,16 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 
 EPS32 = 2.0 ** -24  # f32 unit roundoff
 
-# published peaks of one H100 SXM: HBM bytes/s and FP32 (non-tensor) flop/s
+# the published HBM rate of one H100 SXM, bytes/s (its FP32 non-tensor peak,
+# 67e12 flop/s, is ``utils.profiling.H100_PEAK_F32``)
 H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
 
 # the TPU kernel each CUDA kernel replaces (file:line of the function that
 # reaches pl.pallas_call)
@@ -476,8 +477,10 @@ def _ms(v) -> str:
 
 
 def bound_ms(nbytes: float, flops: float):
+    from abstractgps_tpu_torch.utils.profiling import H100_PEAK_F32
+
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    t_ops = flops / H100_PEAK_F32 * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -859,18 +862,27 @@ class capture_first_input:
         setattr(self.mod, self.name, self.orig)
 
 
-def profile_breakdown(name: str, fn, top: int = 10) -> None:
+def profile_breakdown(name: str, fn, top: int = 10, setup=None) -> None:
     """One warm call of ``fn`` under ``torch.profiler``: device time by
     kernel name, and the device's busy share of the traced window (the
     union of kernel intervals over the span from the first traced host op
-    to the last kernel's end; the profiler's own overhead widens it)."""
+    to the last kernel's end; the profiler's own overhead widens it). With
+    ``setup``, each call is ``fn(setup())`` and ``setup`` runs outside the
+    window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    def prepared():
+        if setup is None:
+            return fn
+        arg = setup()
+        return lambda: fn(arg)
+
+    prepared()()
+    call = prepared()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        call()
         torch.cuda.synchronize()
     events = list(prof.events())
     wall_us = (max(e.time_range.end for e in events)
@@ -2675,6 +2687,502 @@ def run_markov_val(seed, dev):
     return ok, runs, checks
 
 
+
+# ---------------------------------------------------------------------------
+# [cg grad]: ∇ of the CG posterior's mean_and_var at the [cg] configuration
+# ---------------------------------------------------------------------------
+
+CG_GRAD_M = 256  # test points of the ∇
+
+
+def cg_grad_oracle_f64(x, y, xs, solves, s2=1.0, ell=1.0, noise=0.1):
+    """Dense f64 reference of [cg grad] on the card, written apart from the
+    port: ∇ of L = Σ mean + Σ var in x*, σ², ℓ and the noise, in closed form
+    from ∂L/∂Ks = G and ∂L/∂A = Ā (Ks = K(X, x*), A = K + noise·I, ∂A/∂noise
+    = I): exactly, with α = A⁻¹y, W = A⁻¹Ks, u = W·1, G = α1ᵀ − 2W and Ā =
+    WWᵀ − uαᵀ; and at the port's own f32 solves (``solves``: name → (X, B)
+    for "alpha", "W" and the backward's "W backward" (B̄ = A⁻¹(−Ks)) and
+    "alpha backward" (A⁻¹Ks·1)), the formula its backward evaluates: G =
+    α1ᵀ − W + B̄, Ā = −B̄Wᵀ − (A⁻¹Ks·1)αᵀ. Returns both, the rounding scale
+    Σ|terms| of the latter, each solve's true residual norms ‖AX − B‖, and
+    the first-order bound of the CG error from them: an error δ in a solve
+    is A⁻¹r, so |⟨v, δ⟩| ≤ ‖v‖·‖r‖/noise (λ_min ≥ noise), with v over
+    ∂k(x*ⱼ) (x*), ∂Ks's columns and ∂K times the solutions (σ², ℓ), and the
+    solutions themselves (noise)."""
+    import torch
+
+    n = x.shape[0]
+    out = {}
+    with torch.no_grad():
+        A = matern32_f64(x, x, s2, ell)
+        A.diagonal().add_(noise)
+        out["res"] = {k: (A @ X.double() - B.double()).norm(dim=0).cpu()
+                      for k, (X, B) in solves.items()}
+        L = torch.linalg.cholesky(A)
+        del A
+        y64, x64, xs64 = y.double(), x.double(), xs.double()
+        alpha = torch.cholesky_solve(y64[:, None], L)[:, 0]
+        Ks = matern32_f64(x, xs, s2, ell)
+        W = torch.cholesky_solve(Ks, L)
+        del L
+        u = W.sum(1)
+        a_p = solves["alpha"][0].double()[:, 0]
+        W_p = solves["W"][0].double()
+        B_p = solves["W backward"][0].double()
+        u_p = solves["alpha backward"][0].double()[:, 0]
+        Gs = {"exact": alpha[:, None] - 2.0 * W, "port": a_p[:, None] - W_p + B_p}
+        t = math.sqrt(3.0) / ell * torch.cdist(x64, xs64)
+        e = torch.exp(-t)
+        c = -3.0 * s2 / ell ** 2
+        dKs = [Ks / s2, s2 * t * t * e / ell]  # ∂Ks/∂σ², ∂Ks/∂ℓ
+        g = {}
+        for k, G in Gs.items():
+            Ge = G * e  # ∂k(x_i, x*_j)/∂x*_j = c·e_ij·(x*_j − x_i)
+            g[k] = {"x": c * (xs64 * Ge.sum(0)[:, None] - Ge.T @ x64),
+                    "th": [float((G * d).sum()) + (Ks.shape[1] if i == 0 else 0.0)
+                           for i, d in enumerate(dKs)]}
+        Ga = Gs["port"].abs() * e
+        x_abs = abs(c) * (Ga.T @ x64.abs() + xs64.abs() * Ga.sum(0)[:, None])
+        th_abs = [float((Gs["port"].abs() * d).sum()) for d in dKs]
+        # ‖∂_d k(·, x*_j)‖ and ‖∂Ks[:, j]‖ for the residual bound
+        e2 = e * e
+        dk_norm = abs(c) * torch.sqrt((e2.T @ (x64 * x64) - 2.0 * xs64 * (e2.T @ x64)
+                                       + xs64 * xs64 * e2.sum(0)[:, None]).clamp_min(0.0))
+        dks_norm = [d.norm(dim=0).cpu() for d in dKs]
+        del t, e, e2, Ga, dKs
+        # ⟨Ā, ∂K⟩ as Σ_pairs ⟨left, ∂K·right⟩, exact (WWᵀ − uαᵀ) and port
+        # (−B̄Wᵀ − u_pα_pᵀ); ‖∂K v‖ for v = W's columns, α, u
+        m = W.shape[1]
+        R = torch.cat([W, alpha[:, None], W_p, a_p[:, None], u[:, None]], dim=1)
+        Lf = {"exact": torch.cat([W, -u[:, None]], dim=1),
+              "port": torch.cat([-B_p, -u_p[:, None]], dim=1)}
+        cols = {"exact": slice(0, m + 1), "port": slice(m + 1, 2 * m + 2)}
+        Rabs_p = R[:, cols["port"]].abs()
+        dKR2 = torch.zeros(2, R.shape[1], dtype=torch.float64, device=x.device)
+        a_abs = [0.0, 0.0]
+        for r0 in range(0, n, 2048):
+            rows = slice(r0, r0 + 2048)
+            tt = math.sqrt(3.0) / ell * torch.cdist(x64[rows], x64)
+            ee = torch.exp(-tt)
+            for i, dK in enumerate(((1.0 + tt) * ee, s2 * tt * tt * ee / ell)):
+                P = dK @ R
+                for k in ("exact", "port"):
+                    g[k]["th"][i] += float((Lf[k][rows] * P[:, cols[k]]).sum())
+                dKR2[i] += (P * P).sum(0)
+                a_abs[i] += float((Lf["port"][rows].abs() * (dK @ Rabs_p)).sum())
+        for k in ("exact", "port"):
+            g[k]["th"].append(float((Lf[k] * R[:, cols[k]]).sum()))  # tr(Ā)
+        noise_abs = float((Lf["port"].abs() * Rabs_p).sum())
+        dKV = dKR2.sqrt().cpu()
+        Wn, an, un = W.norm(dim=0).cpu(), float(alpha.norm()), float(u.norm())
+    out["grad_x"] = g["exact"]["x"].cpu()
+    out["grad_theta"] = torch.tensor(g["exact"]["th"], dtype=torch.float64)
+    out["port_x"] = g["port"]["x"].cpu()
+    out["port_theta"] = torch.tensor(g["port"]["th"], dtype=torch.float64)
+    rnd = 8.0 * math.sqrt(n) * EPS32
+    out["round_x"] = rnd * x_abs.cpu()
+    out["round_theta"] = rnd * torch.tensor([th_abs[0] + a_abs[0], th_abs[1] + a_abs[1],
+                                             noise_abs], dtype=torch.float64)
+    res = out["res"]
+    r_a, r_w, r_b, r_ab = res["alpha"][0], res["W"], res["W backward"], res["alpha backward"][0]
+    per_point = r_a + r_w + r_b  # the solves behind G's column j
+    out["bound_x"] = dk_norm.cpu() * per_point[:, None] / noise
+    bth = []
+    for i in range(2):
+        kv = dKV[i]
+        bth.append(float((dks_norm[i] * per_point).sum() + (kv[:m] * (r_w + r_b)).sum()
+                         + kv[m] * r_ab + kv[-1] * r_a) / noise)
+    bth.append(float((Wn * (r_w + r_b)).sum() + an * r_ab + un * r_a) / noise)
+    out["bound_theta"] = torch.tensor(bth, dtype=torch.float64)
+    out["res_rel"] = {k: float((v / solves[k][1].detach().double().norm(dim=0).cpu()).max())
+                      for k, v in res.items()}
+    return out
+
+
+def run_cg_grad(seed, dev):
+    """[cg grad]: ``torch.autograd.grad`` of Σmean + Σvar of the CG
+    posterior's ``mean_and_var`` at 256 points, in x* and in (σ², ℓ, noise)
+    (caller tensors), at the [cg] configuration (``CGInference()``'s
+    defaults); launches of the forward and of the backward, the backward's
+    host ms, and the ∇ against ``cg_grad_oracle_f64`` within the bound that
+    the measured residuals of the forward and backward solves give. Returns
+    (ok, launches by run)."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.models import iterative
+
+    c = CG
+    x, y, xs = cg_data(seed + 50, dev)
+    xs = xs[:CG_GRAD_M].clone()
+    theta = caller_theta(1.0, 1.0, dev, torch.float32)
+    inf = agt.CGInference()
+
+    def forward(xs_):
+        s2, ell, nz = theta
+        fx = agt.GP(s2 * agt.with_lengthscale(agt.Matern32Kernel(), ell))(x, nz)
+        m, v = agt.posterior(inf, fx, y).mean_and_var(xs_)
+        return m.sum() + v.sum()
+
+    runs = {}
+    xs_ = xs.clone().requires_grad_()
+    with record_calls(iterative, "mbcg") as mb:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = forward(xs_)
+        torch.cuda.synchronize()
+        runs["cg grad forward"] = read_launches()
+        reset_launches()
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(out, [xs_, *theta])
+        torch.cuda.synchronize()
+        bwd_ms = (time.perf_counter() - t0) * 1e3
+        runs["cg grad backward"] = read_launches()
+    # the four solves: α (posterior), W (mean_and_var), and the backward's two
+    calls = [(args[1], res[0]) for args, res in mb.calls]
+    fwd, bwd = calls[:2], calls[2:]
+    solves = {"alpha": (fwd[0][1], fwd[0][0]), "W": (fwd[1][1], fwd[1][0])}
+    for B, X in bwd:
+        solves["alpha backward" if B.shape[1] == 1 else "W backward"] = (X, B)
+    del mb
+    profile_breakdown("cg grad backward", lambda o: torch.autograd.grad(o, theta), top=8,
+                      setup=lambda: forward(xs))
+    gx = grads[0].double().cpu()
+    gth = torch.stack(grads[1:]).double().cpu()
+    ref = cg_grad_oracle_f64(x, y, xs, solves, noise=c["noise"])
+    torch.cuda.empty_cache()
+    # (e) the port's ∇ against the f64 evaluation of the same formula at its
+    # own solves: its backward's algebra, to f32 rounding; (f) that f64
+    # evaluation against the exact ∇: the CG error, within the residual bound
+    ex = (gx - ref["port_x"]).abs()
+    eth = (gth - ref["port_theta"]).abs()
+    cx = (ref["port_x"] - ref["grad_x"]).abs()
+    cth = (ref["port_theta"] - ref["grad_theta"]).abs()
+    ok_e = (bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gth).all())
+            and bool((ex <= ref["round_x"]).all()) and bool((eth <= ref["round_theta"]).all()))
+    ok_f = bool((cx <= ref["bound_x"]).all()) and bool((cth <= ref["bound_theta"]).all())
+    ok = ok_e and ok_f and all(runs["cg grad backward"].get(k, 0) > 0 for k in CG_KERNELS)
+    print(f"[cg grad] N={c['n']} D={c['d']} f32, ∇ of Σmean + Σvar of mean_and_var at "
+          f"{CG_GRAD_M} points: launches forward {json.dumps(runs['cg grad forward'])}, "
+          f"backward {json.dumps(runs['cg grad backward'])}; backward host ms {bwd_ms:.3f}; "
+          f"true f64 relative residuals "
+          f"max {json.dumps({k: float(f'{v:.3e}') for k, v in ref['res_rel'].items()})}",
+          flush=True)
+    print(f"[cg grad] ∇(s2, ell, noise) {[round(v, 5) for v in gth.tolist()]}; (e) the f64 "
+          f"formula at the port's solves {[round(v, 5) for v in ref['port_theta'].tolist()]}, "
+          f"error {[float(f'{v:.3e}') for v in eth.tolist()]}, / 8·√N·eps·Σ|terms| "
+          f"{[round(v, 4) for v in (eth / ref['round_theta']).tolist()]}"
+          f"; ∇x* max error {float(ex.max()):.3e}, largest error / rounding bound "
+          f"{float((ex / ref['round_x']).max()):.4f}; (f) exact f64 "
+          f"{[round(v, 5) for v in ref['grad_theta'].tolist()]}: CG error "
+          f"{[float(f'{v:.3e}') for v in cth.tolist()]}, / residual bound "
+          f"{[float(f'{v:.3e}') for v in (cth / ref['bound_theta']).tolist()]}; ∇x* CG error max "
+          f"{float(cx.max()):.3e} (max|∇x*| {float(ref['grad_x'].abs().max()):.3e}), / bound max "
+          f"{float((cx / ref['bound_x']).max()):.3e}; {'ok' if ok else 'FAIL'}", flush=True)
+    return ok, runs
+
+
+# ---------------------------------------------------------------------------
+# [dp elbo], [dp nuts]: a 2-rank gloo world on the one card
+# ---------------------------------------------------------------------------
+
+DP = dict(world=2, steps=5, chains=4, warmup=20, draws=20)
+DP_STEP_LAUNCHES = SVGP_STEP_LAUNCHES  # the collapsed ∇: 2 gram_tile, 3 gram_bwd
+
+
+def dp_theta0(x):
+    """The raw tree of [dp elbo]: σ² = 1, ARD = 1, noise 0.1, z = the first
+    512 inputs."""
+    import torch
+
+    import abstractgps_tpu_torch.params as P
+
+    d = x.shape[1]
+    return {"s2": P.positive(torch.tensor(1.0, device=x.device)),
+            "ard": P.positive(torch.ones(d, device=x.device)),
+            "noise2": P.positive(torch.tensor(0.1, device=x.device)),
+            "z": P.real(x[:SPARSE["m"]].clone())}
+
+
+def dp_loss(rt, data):
+    """−ELBO of VFE(f(z, 1e-6)) at f(x, noise2), the example's model."""
+    import abstractgps_tpu_torch as agt
+    import abstractgps_tpu_torch.params as P
+
+    th = P.constrain(rt)
+    x_, y_ = data
+    f = agt.GP(ard_kernel(th["s2"], th["ard"]))
+    return -agt.elbo(agt.VFE(f(th["z"], JITTER)), f(x_, th["noise2"]), y_)
+
+
+def _dp_rank(rank, world, store, outdir, seed, sizes, dev_type):
+    """One rank of the [dp elbo] / [dp nuts] world (``torch.multiprocessing``
+    spawn target; ``sizes`` are the parent's SPARSE, HYPER and DP): results
+    to ``outdir/dp_rank<r>.json``."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.inference.mcmc import (
+        init_chain_positions,
+        logdensity_and_grad,
+        run_mcmc,
+    )
+    from abstractgps_tpu_torch.ops import cuda
+    from abstractgps_tpu_torch.parallel import fit_sharded, initialize_distributed, make_mesh
+    from abstractgps_tpu_torch.parallel import collectives as col
+    from abstractgps_tpu_torch.parallel.mesh import shard_along
+
+    for name, val in sizes.items():
+        globals()[name].update(val)
+    dev = torch.device(dev_type)
+    agt.set_default_device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    if dev.type == "cuda":
+        cuda.library()  # built by the parent
+    initialize_distributed(f"file://{store}", world, rank, timeout=600)
+    mesh = make_mesh(world)
+    group = mesh.get_group("dp")
+    out = {"backend": torch.distributed.get_backend()}
+    c = SPARSE
+    x, y, _ = sparse_data(seed + 60, dev, c["n"], c["d"])
+    theta0 = dp_theta0(x)
+    import abstractgps_tpu_torch.params as P
+
+    # the ELBO and its ∇ in the constrained leaves at θ0, sharded
+    th = P.constrain(theta0)
+    leaves = [th[k].detach().clone().requires_grad_() for k in ("s2", "ard", "noise2", "z")]
+    f = agt.GP(ard_kernel(leaves[0], leaves[1]))
+    xl, yl = shard_along(x, mesh), shard_along(y, mesh)
+    with col.data_axis(group):
+        e = agt.elbo(agt.VFE(f(leaves[3], JITTER)), f(xl, leaves[2]), yl)
+    gr = torch.autograd.grad(e, leaves)
+    flat = col.all_reduce(torch.cat([g.reshape(-1) for g in gr]), group) / world
+    out["elbo"] = float(e.detach())
+    out["grad"] = flat.double().cpu().tolist()
+    out["rows"] = xl.shape[0]
+    # fit_sharded: per step launches, collectives and ms, after one warm step
+    # (a process's first optimizer step pays one-off imports)
+    fit_sharded(dp_loss, theta0, (x, y), mesh, num_steps=1, learning_rate=3e-2)
+    sync()
+    col.reset_collectives()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = fit_sharded(dp_loss, theta0, (x, y), mesh, num_steps=DP["steps"], learning_rate=3e-2)
+    sync()
+    out["fit_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fit_launches"] = dict(cuda.LAUNCHES)
+    out["fit_collectives"] = dict(col.COLLECTIVES)
+    out["fit_bytes"] = dict(col.COLLECTIVE_BYTES)
+    out["history"] = res.history.double().cpu().tolist()
+    out["theta"] = [t.detach().double().cpu().reshape(-1).tolist() for t in P.leaves(res.params)]
+    if dev.type == "cuda":
+        profile_breakdown(f"dp elbo step rank {rank}",
+                          lambda: fit_sharded(dp_loss, theta0, (x, y), mesh, num_steps=1,
+                                              learning_rate=3e-2), top=8)
+    # [dp nuts]: chain-sharded hyper NUTS, no collective while sampling
+    h = HYPER
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 10)
+    xh = torch.as_tensor(rng.uniform(size=(h["n"], h["d"])), dtype=torch.float32, device=dev)
+    yh = torch.as_tensor(rng.normal(size=h["n"]), dtype=torch.float32, device=dev)
+    logdens = hyper_logdensity(xh, yh)
+    init = init_chain_positions(seed, torch.zeros(3, dtype=torch.float32, device=dev),
+                                num_chains=DP["chains"], jitter=h["jitter"])
+    fgrad = logdensity_and_grad(logdens, lambda v: v, "loop")
+    cuda.reset_launches()
+    fgrad(init[rank * 2:rank * 2 + 1])
+    sync()
+    out["nuts_per_grad"] = dict(cuda.LAUNCHES)
+    col.reset_collectives()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    r = run_mcmc(logdens, init, seed, num_chains=DP["chains"], num_warmup=DP["warmup"],
+                 num_samples=DP["draws"], max_depth=h["max_depth"], chain_eval="loop",
+                 mesh=mesh)
+    sync()
+    out["nuts_s"] = time.perf_counter() - t0
+    out["nuts_collectives"] = dict(col.COLLECTIVES)
+    out["nuts_launches"] = dict(cuda.LAUNCHES)
+    out["nuts_chains"] = list(r.positions.shape)
+    out["nuts_finite"] = bool(torch.isfinite(r.positions).all() and torch.isfinite(r.logdens).all())
+    out["nuts_leapfrogs"] = int(r.num_steps.sum())
+    with open(os.path.join(outdir, f"dp_rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    torch.distributed.destroy_process_group()
+
+
+def run_dp(seed, dev):
+    """[dp elbo] and [dp nuts]: a 2-rank world on the one card (gloo: NCCL
+    refuses two ranks on one GPU), spawned with ``torch.multiprocessing``;
+    a rank's failure fails the phase. [dp elbo] (BASELINE config 3, 25 000
+    points a rank): the sharded ELBO and ∇ at θ0 against ``vfe_f64``, then 5
+    ``fit_sharded`` steps against the unsharded ``fit`` of the same loss
+    here, with each rank's launches, collectives and ms per step. [dp nuts]:
+    chain-sharded hyper NUTS at the [mcmc hyper] target, 2 chains a rank.
+    Returns (ok, launches by run)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    import abstractgps_tpu_torch as agt
+    import abstractgps_tpu_torch.params as P
+    from abstractgps_tpu_torch.inference.mcmc import init_chain_positions, logdensity_and_grad
+
+    w = DP["world"]
+    tmp = tempfile.mkdtemp(prefix="dp_")
+    t0 = time.perf_counter()
+    sizes = {"SPARSE": SPARSE, "HYPER": HYPER, "DP": DP}
+    mp.spawn(_dp_rank, args=(w, os.path.join(tmp, "store"), tmp, seed, sizes, dev.type),
+             nprocs=w, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(w):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    c = SPARSE
+    x, y, _ = sparse_data(seed + 60, dev, c["n"], c["d"])
+    theta0 = dp_theta0(x)
+    # the unsharded fit of the same loss, timed the same way (after a warm step)
+    agt.fit(lambda rt: dp_loss(rt, (x, y)), theta0, num_steps=1, learning_rate=3e-2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ref = agt.fit(lambda rt: dp_loss(rt, (x, y)), theta0, num_steps=DP["steps"],
+                  learning_rate=3e-2)
+    torch.cuda.synchronize()
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    ref_launches = read_launches()
+    h_ref = ref.history.double().cpu()
+    th_ref = [t.detach().double().cpu().reshape(-1) for t in P.leaves(ref.params)]
+    # the ELBO and ∇ at θ0 in f64
+    th = P.constrain(theta0)
+    l64 = [th[k].detach().double().requires_grad_() for k in ("s2", "ard", "noise2", "z")]
+    e64, _, k_zz, k_lam = vfe_f64(*l64, x, y)
+    want = torch.autograd.grad(e64, l64)
+    kappa = max(k_zz, k_lam)
+    tol_g = GRAD_KAPPA_FACTOR * kappa * EPS32
+    ok = True
+    runs = {}
+    for r, res in enumerate(ranks):
+        g = torch.tensor(res["grad"], dtype=torch.float64)
+        got, i = [], 0
+        for wv in want:
+            got.append(g[i:i + wv.numel()].reshape(wv.shape))
+            i += wv.numel()
+        errs = leaf_errors(got, want)
+        e_err = abs(res["elbo"] - float(e64.detach())) / abs(float(e64.detach()))
+        h = torch.tensor(res["history"], dtype=torch.float64)
+        h_err = float(((h - h_ref).abs() / h_ref.abs()).max())
+        th_err = max(float((torch.tensor(a) - b).abs().max() / b.abs().max())
+                     for a, b in zip(res["theta"], th_ref))
+        per_step = {k: v / DP["steps"] for k, v in res["fit_launches"].items() if v}
+        coll = {k: v / DP["steps"] for k, v in res["fit_collectives"].items() if v}
+        nbytes = {k: v / DP["steps"] for k, v in res["fit_bytes"].items() if v}
+        launch_ok = all(per_step.get(k) == v for k, v in DP_STEP_LAUNCHES.items())
+        good = (res["backend"] == "gloo" and res["rows"] == c["n"] // w
+                and all(e_ <= tol_g for e_ in errs) and e_err <= _tol_rel(kappa)
+                and h_err <= tol_g and th_err <= tol_g and launch_ok)
+        print(f"[dp elbo] rank {r}/{w} ({res['backend']}, {res['rows']} points): ELBO at θ0 "
+              f"{res['elbo']:.4f} (f64 {float(e64.detach()):.4f}, rel error {e_err:.3e}, tol "
+              f"{_tol_rel(kappa):.3e}); ∇ error / max|∇| by leaf "
+              f"{json.dumps(dict(zip(('s2', 'ard', 'noise', 'z'), errs)))} (tol {tol_g:.3e}); "
+              f"{DP['steps']} fit_sharded steps: history {res['history']} vs unsharded fit, max "
+              f"rel error {h_err:.3e}, final θ max rel error {th_err:.3e} (tol {tol_g:.3e}); per "
+              f"step: launches {json.dumps(per_step)}, collectives {json.dumps(coll)} "
+              f"({json.dumps(nbytes)} bytes), {res['fit_ms'] / DP['steps']:.3f} ms "
+              f"(unsharded {ref_ms / DP['steps']:.3f} ms, launches "
+              f"{json.dumps({k: v / DP['steps'] for k, v in ref_launches.items() if v})}); "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok = ok and good
+        runs[f"dp elbo step rank {r}"] = {k: v // DP["steps"] for k, v in res["fit_launches"].items()}
+    # [dp nuts]: one chain's ∇logpdf launches as unsharded, no collective
+    hc = HYPER
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 10)
+    xh = torch.as_tensor(rng.uniform(size=(hc["n"], hc["d"])), dtype=torch.float32, device=dev)
+    yh = torch.as_tensor(rng.normal(size=hc["n"]), dtype=torch.float32, device=dev)
+    init = init_chain_positions(seed, torch.zeros(3, dtype=torch.float32, device=dev),
+                                num_chains=DP["chains"], jitter=hc["jitter"])
+    fgrad = logdensity_and_grad(hyper_logdensity(xh, yh), lambda v: v, "loop")
+    reset_launches()
+    fgrad(init[:1])
+    torch.cuda.synchronize()
+    per_grad = read_launches()
+    for r, res in enumerate(ranks):
+        good = (res["nuts_finite"] and not any(res["nuts_collectives"].values())
+                and res["nuts_chains"] == [DP["chains"] // w, DP["draws"], 3]
+                and res["nuts_per_grad"] == per_grad
+                and all(res["nuts_launches"].get(k, 0) > 0 for k in HYPER_KERNELS))
+        print(f"[dp nuts] rank {r}/{w}: {DP['chains'] // w} chains, {DP['warmup']} warmup + "
+              f"{DP['draws']} draws, N={hc['n']}: {res['nuts_leapfrogs']} leapfrogs in "
+              f"{res['nuts_s']:.3f} s; collectives while sampling "
+              f"{json.dumps(res['nuts_collectives'])}; one ∇logpdf's launches "
+              f"{json.dumps(res['nuts_per_grad'])} (unsharded {json.dumps(per_grad)}); launches "
+              f"{json.dumps({k: v for k, v in res['nuts_launches'].items() if v})}; "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        ok = ok and good
+        runs[f"dp nuts rank {r}"] = res["nuts_launches"]
+    print(f"[dp] the 2-rank world (spawn, build loaded, both phases, join) took {spawn_s:.1f} s",
+          flush=True)
+    return ok, runs
+
+
+# ---------------------------------------------------------------------------
+# [utils]: checkpoint, checked, trace at full width on the card
+# ---------------------------------------------------------------------------
+
+
+def run_utils(post, kernel, x, y):
+    """[utils]: the N = 8192 posterior cache through ``checkpoint.save`` /
+    ``restore`` (bit for bit, still on the card), ``checked`` on the
+    full-width logpdf with a NaN in y (must raise) and without (must pass
+    the value through), ``profiling.trace`` around one full-width logpdf
+    (must write a trace). Returns ok."""
+    import tempfile
+
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.utils import checkpoint, profiling
+    from abstractgps_tpu_torch.utils.debug import checked
+
+    tmp = tempfile.mkdtemp(prefix="utils_")
+    checkpoint.save(os.path.join(tmp, "cache"), post.data)
+    back = checkpoint.restore(os.path.join(tmp, "cache"), post.data)
+    names = ("alpha", "L", "x", "delta")
+    same = all(torch.equal(getattr(back, k), getattr(post.data, k)) for k in names)
+    on_card = all(getattr(back, k).is_cuda for k in names)
+
+    def logpdf(yy):
+        with torch.no_grad():
+            return agt.GP(kernel)(x, NOISE).logpdf(yy)
+
+    y_nan = y.clone()
+    y_nan[17] = float("nan")
+    try:
+        checked(logpdf)(y_nan)
+        raised = False
+    except FloatingPointError as err:
+        raised = "nan" in str(err).lower()
+    passed = float(checked(logpdf)(y)) == float(logpdf(y))
+    with profiling.trace(os.path.join(tmp, "trace")):
+        logpdf(y)
+        torch.cuda.synchronize()
+    size = os.path.getsize(os.path.join(tmp, "trace", "trace.json"))
+    ok = same and on_card and raised and passed and size > 0
+    print(f"[utils] checkpoint of the N={x.shape[0]} posterior cache bit for bit {same}, leaves "
+          f"on cuda {on_card}; checked logpdf with a NaN in y raised {raised}, clean value passed "
+          f"through {passed}; trace of one logpdf {size} bytes; {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2736,9 +3244,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cg_ok, runs_cg, checks_cg = run_cg(args.seed, dev)
     torch.cuda.empty_cache()
+    cg_grad_ok, runs_cg_grad = run_cg_grad(args.seed, dev)
+    runs_cg.update(runs_cg_grad)
+    torch.cuda.empty_cache()
     pw_ok, runs_pw, checks_pw = run_pathwise(args.seed, dev)
     torch.cuda.empty_cache()
-    ok = ok and cg_ok and pw_ok
+    ok = ok and cg_ok and cg_grad_ok and pw_ok
     print(f"[cg slice] cg and pathwise phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the Markov backend at N = 10^6 and its cross-check at N = 8192 ----
@@ -2747,6 +3258,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ok = ok and mk_ok
     print(f"[markov] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the data-parallel layer: a 2-rank world on the one card -----------
+    t0 = time.perf_counter()
+    dp_ok, runs_dp = run_dp(args.seed, dev)
+    torch.cuda.empty_cache()
+    ok = ok and dp_ok
+    print(f"[dp] phases took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- the main path: full width, then the ragged width -----------------
     N, M, D, N_RAGGED, M_RAGGED = 8192, 4096, 8, 4500, 1024
@@ -2758,6 +3276,7 @@ def main(argv=None) -> int:
     with capture_first_input("slab_factor") as slab_in:
         (lp, mu, var, post), full_counts = run_path(kernel, x, y, xs)
     torch.cuda.synchronize()
+    ok = run_utils(post, kernel, x, y) and ok
     with capture_first_input("chol_inv_block") as block_in:
         (lp_r, mu_r, var_r, _), ragged_counts = run_path(kernel_r, xr, yr, xsr)
     torch.cuda.synchronize()
@@ -2812,7 +3331,8 @@ def main(argv=None) -> int:
             "grad full": counts_g, "grad ragged": counts_gr, "pred grad full": counts_gp,
             "fit full": counts_fit, "deep grad full": counts_deep,
             "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper,
-            **runs_svgp, **runs_sparse, **runs_online, **runs_cg, **runs_pw, **runs_mk}
+            **runs_svgp, **runs_sparse, **runs_online, **runs_cg, **runs_pw, **runs_mk,
+            **runs_dp}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -2834,6 +3354,9 @@ def main(argv=None) -> int:
             "online extends": tuple(ONLINE_EXTEND_LAUNCHES),
             "cg logpdf": ("gram_tile",), "cg grad": CG_KERNELS, "cg posterior": ("gram_tile",),
             "cg mean": ("gram_tile",), "cg mean_and_var": ("gram_tile",),
+            "cg grad forward": ("gram_tile",), "cg grad backward": CG_KERNELS,
+            **{f"dp elbo step rank {r}": tuple(DP_STEP_LAUNCHES) for r in range(DP["world"])},
+            **{f"dp nuts rank {r}": HYPER_KERNELS for r in range(DP["world"])},
             "pathwise setup": PATHWISE_KERNELS, "pathwise eval": ("gram_tile",),
             **MARKOV_DENSE_KERNELS}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
@@ -2937,9 +3460,9 @@ def main(argv=None) -> int:
     profile_breakdown("pred grad", pred_grad_once, top=14)
 
     path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online,
-                 "cg": runs_cg, "pathwise": runs_pw, "markov": runs_mk}
+                 "cg": runs_cg, "pathwise": runs_pw, "markov": runs_mk, "dp": runs_dp}
     path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online,
-                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk}
+                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk, "dp": {}}
 
     def slice_paths(name):
         # each later slice's path: its launches of the kernel (by run) and its

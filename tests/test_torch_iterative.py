@@ -342,13 +342,62 @@ def test_cg_posterior_matches_jax(rng, rank):
     _close(pt.var(xst), _n(pe.var(xst)), rtol=1e-6, atol=1e-8)
 
 
-def test_cg_posterior_outputs_carry_no_graph(rng):
-    _, _, _, fxt, x, y = _setup(rng, n=64)
-    s2 = torch.tensor(1.3, dtype=F64, requires_grad=True)
-    fx = agt.GP(s2 * agt.Matern32Kernel())(fxt.x, 0.25)
-    p = agt.CGInference(max_iters=64).posterior(fx, _t(y))
-    m, v = p.mean_and_var(_t(x[:5]))
-    assert not (p.alpha.requires_grad or m.requires_grad or v.requires_grad)
+def _cg_pred_grad_setup(rng):
+    x, y, xs = rng.uniform(size=(64, 3)), rng.normal(size=64), rng.uniform(size=(5, 3))
+    # f64 at N = 64: 64 steps with tol 1e-12 converge both the JAX package's
+    # unrolled scan and the port's forward and backward solves, so the
+    # implicit and the unrolled gradients agree to the solves' residuals
+    kw = dict(max_iters=64, tol=1e-12, precond_rank=0)
+    return x, y, xs, kw
+
+
+def _port_cg_posterior(x, yt, theta, kw):
+    k = theta[0] * agt.with_lengthscale(agt.Matern32Kernel(), theta[1])
+    return agt.posterior(agt.CGInference(**kw), agt.GP(0.3, k)(_t(x), theta[2]), yt)
+
+
+def test_cg_posterior_mean_and_var_gradient_matches_jax_grad(rng):
+    # ∇ of Σmean + Σvar in x*, σ², ℓ, the noise and y: the port's implicit
+    # backward (one more CG solve) against jax.grad through the JAX package's
+    # unrolled CG, both at f64; measured ≤ 5e-10 relative, so 1e-8 holds the
+    # gap that the CG tolerance 1e-12 leaves with room
+    x, y, xs, kw = _cg_pred_grad_setup(rng)
+
+    def loss_j(xs_, s2, ell, noise, yy):
+        k = s2 * agp.with_lengthscale(agp.Matern32Kernel(), ell)
+        p = agp.posterior(ji.CGInference(**kw), agp.GP(0.3, k)(jnp.asarray(x), noise), yy)
+        m, v = p.mean_and_var(xs_)
+        return jnp.sum(m) + jnp.sum(v)
+
+    want = jax.grad(loss_j, argnums=(0, 1, 2, 3, 4))(jnp.asarray(xs), 1.3, 0.8, 0.25,
+                                                     jnp.asarray(y))
+    th = [torch.tensor(v, dtype=F64, requires_grad=True) for v in (1.3, 0.8, 0.25)]
+    xst, yt = _t(xs).requires_grad_(), _t(y).requires_grad_()
+    m, v = _port_cg_posterior(x, yt, th, kw).mean_and_var(xst)
+    got = torch.autograd.grad(m.sum() + v.sum(), [xst, *th, yt])
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        _close(g, w, rtol=0, atol=1e-8 * np.abs(w).max())
+
+
+def test_cg_posterior_mean_input_gradient_runs_no_cg(rng, monkeypatch):
+    # mean = m(x*) + K(x*, X)α: its ∇x* is the gram's own backward; once the
+    # posterior is built, no CG solve may run
+    x, y, xs, kw = _cg_pred_grad_setup(rng)
+    k_j = 1.3 * agp.with_lengthscale(agp.Matern32Kernel(), 0.8)
+    pj = agp.posterior(ji.CGInference(**kw), agp.GP(0.3, k_j)(jnp.asarray(x), 0.25),
+                       jnp.asarray(y))
+    want = np.asarray(jax.grad(lambda a: jnp.sum(pj.mean(a)))(jnp.asarray(xs)))
+    th = [torch.tensor(v, dtype=F64) for v in (1.3, 0.8, 0.25)]
+    p = _port_cg_posterior(x, _t(y), th, kw)
+
+    def no_cg(*a, **k):
+        raise AssertionError("mean ran a CG solve")
+
+    monkeypatch.setattr(ti, "mbcg", no_cg)
+    xst = _t(xs).requires_grad_()
+    (got,) = torch.autograd.grad(p.mean(xst).sum(), xst)
+    _close(got, want, rtol=1e-9, atol=1e-9 * np.abs(want).max())
 
 
 def test_approx_log_evidence_dispatch_and_probe_seed(rng):
