@@ -106,63 +106,31 @@ class GeneratorDraws:
 class ChainSliceDraws:
     """The draws of chains ``[start, stop)`` of ``total``: each site draws
     the full (total, ...) batch from ``draws`` and keeps this slice (the
-    chain-sharded samplers, one slice a rank). ``active`` masks are widened
-    with False for the other chains, so a draws object that keeps one
-    stream a chain advances exactly the streams of this slice's active
-    chains, as in the unsharded run."""
+    chain-sharded samplers, one slice a rank). A site's per-chain tensor
+    arguments are widened to the full batch: positions with zeros, the
+    ``active`` masks with False for the other chains, so a draws object that
+    keeps one stream a chain advances exactly the streams of this slice's
+    active chains, as in the unsharded run. ``resample_uniform`` (one
+    scalar for every particle) passes through."""
 
     def __init__(self, draws, start: int, stop: int, total: int):
         self.draws, self.start, self.stop, self.total = draws, start, stop, total
 
-    def _full(self, q: torch.Tensor) -> torch.Tensor:
-        return q.new_zeros((self.total,) + tuple(q.shape[1:]))
-
-    def _mask(self, active: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros(self.total, dtype=torch.bool, device=active.device)
-        out[self.start:self.stop] = active
+    def _widen(self, a):
+        if not isinstance(a, torch.Tensor) or a.dim() == 0 or a.shape[0] != self.stop - self.start:
+            return a
+        out = a.new_zeros((self.total,) + tuple(a.shape[1:]))
+        if a.dtype == torch.bool:
+            out[self.start:self.stop] = a
         return out
 
-    def _mine(self, t: torch.Tensor) -> torch.Tensor:
-        return t[self.start:self.stop]
-
-    def momentum(self, q):
-        return self._mine(self.draws.momentum(self._full(q)))
-
-    def direction(self, q, active):
-        return self._mine(self.draws.direction(self._full(q), self._mask(active)))
-
-    def leaf_uniform(self, q, active):
-        return self._mine(self.draws.leaf_uniform(self._full(q), self._mask(active)))
-
-    def bias_uniform(self, q, active):
-        return self._mine(self.draws.bias_uniform(self._full(q), self._mask(active)))
-
-    def trajectory_length(self, q, high):
-        return self._mine(self.draws.trajectory_length(self._full(q), high))
-
-    def accept_uniform(self, q):
-        return self._mine(self.draws.accept_uniform(self._full(q)))
-
-    def prior(self, sample_prior, q):
-        return self._mine(self.draws.prior(sample_prior, self._full(q)))
-
-    def level_uniform(self, q):
-        return self._mine(self.draws.level_uniform(self._full(q)))
-
-    def angle_uniform(self, q):
-        return self._mine(self.draws.angle_uniform(self._full(q)))
-
-    def shrink_uniform(self, q, active):
-        return self._mine(self.draws.shrink_uniform(self._full(q), self._mask(active)))
-
-    def resample_uniform(self, w):
-        return self.draws.resample_uniform(w)
-
-    def proposal_normal(self, particles):
-        return self._mine(self.draws.proposal_normal(self._full(particles)))
-
-    def move_uniform(self, particles):
-        return self._mine(self.draws.move_uniform(self._full(particles)))
+    def __getattr__(self, name):
+        if name.startswith("_") or name == "draws":
+            raise AttributeError(name)
+        site = getattr(self.draws, name)
+        if name == "resample_uniform":
+            return site
+        return lambda *args: site(*(self._widen(a) for a in args))[self.start:self.stop]
 
 
 def chain_slice(draws, n: int, mesh, mesh_axis: str):

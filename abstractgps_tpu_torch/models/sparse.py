@@ -31,7 +31,7 @@ from ..ops import covmat
 from ..ops.distance import as_tensor
 from ..ops.noise import Noise, noise_block_diag
 from ..ops.precision import precise
-from ..parallel.collectives import psum
+from ..parallel.collectives import data_psum
 from .finite_gp import _LOG_2PI, FiniteGP
 from .gp import AbstractGP
 
@@ -252,10 +252,11 @@ def _collapsed_terms(fx: FiniteGP, y: torch.Tensor, fz: FiniteGP, trace: bool):
     ``tr(Cf Σy⁻¹) − ‖A‖²_F``.
 
     Every term that sums over the data (A·Aᵀ, A·δ, ‖δ‖², log|Σy|, n·log 2π and the
-    trace term's two sums) goes through one ``psum``: while a data axis is
-    active (``parallel.fit_sharded``) it is summed over the ranks' shards in
-    one packed all-reduce, and L_Λ is formed from the global sums on every
-    rank; otherwise ``psum`` is the identity."""
+    trace term's two sums) goes through one ``data_psum``: while a data axis
+    is active (``parallel.fit_sharded``) and ``fx.x`` or ``y`` is a shard of
+    it, it is summed over the ranks' shards in one packed all-reduce, and
+    L_Λ is formed from the global sums on every rank; data that is no shard
+    raises there; with no active axis it is the identity."""
     Kxz = fx.cov(fz)                                 # (N, m)
     L_z = covmat.cholesky_lower(fz.cov())
     A = covmat.solve_lower(L_z, fx.noise.solve_sqrt(Kxz).T)   # (m, N)
@@ -264,7 +265,7 @@ def _collapsed_terms(fx: FiniteGP, y: torch.Tensor, fz: FiniteGP, trace: bool):
     terms = [A @ A.T, A @ delta, torch.sum(delta * delta), fx.noise.logdet(), n_log_2pi]
     if trace:
         terms += [fx.noise.tr_solve(fx.f.var(fx.x)), torch.sum(A * A)]
-    AAt, Ad, dd, logdet_noise, n_log_2pi, *tr = psum(*terms)
+    AAt, Ad, dd, logdet_noise, n_log_2pi, *tr = data_psum((fx.x, y), *terms)
     m = A.shape[0]
     L_Lambda = covmat.cholesky_lower(AAt + _eye(m, A))
     tmp = (logdet_noise

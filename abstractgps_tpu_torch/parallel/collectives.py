@@ -4,7 +4,11 @@ Where the JAX package lets GSPMD insert a ``psum`` wherever a reduction
 meets a sharded operand, the port sums explicitly: while ``data_axis``
 names a process group (``fit_sharded`` sets it), ``psum`` all-reduces its
 tensors over that group in one packed call, and outside it ``psum`` is the
-identity, so a single-process call takes no collective. The sum is
+identity, so a single-process call takes no collective. A model's own
+sums over its data (the collapsed bounds) go through ``data_psum``, which
+sums only data that ``mesh.shard_along`` marked as a shard of the active
+axis and raises on any other data inside the axis, so a replicated input
+is never counted once a rank. The sum is
 differentiable: its backward all-reduces the cotangents, so each rank's
 backward carries W times its own shard's term plus the replicated terms
 once, and the replicated parameters' gradients are then averaged over the
@@ -25,12 +29,13 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVES", "COLLECTIVE_BYTES", "reset_collectives", "all_reduce", "all_gather",
-           "broadcast", "data_axis", "active_axis", "psum"]
+           "broadcast", "data_axis", "active_axis", "psum", "mark_shard", "data_psum"]
 
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 COLLECTIVE_BYTES = dict.fromkeys(COLLECTIVES, 0)
 
 _AXIS = []  # the stack of active data-axis process groups
+_SHARD_OF = "_parallel_shard_of"  # the attribute a shard carries: its group's ranks
 
 
 def reset_collectives() -> None:
@@ -84,7 +89,8 @@ class _AllReduceSum(torch.autograd.Function):
 @contextlib.contextmanager
 def data_axis(group):
     """Within the block, ``psum`` sums over ``group`` (a process group whose
-    ranks each hold one shard of the data)."""
+    ranks each hold one shard of the data). ``data_axis(None)`` marks a
+    block of replicated data inside it: there ``psum`` is the identity."""
     _AXIS.append(group)
     try:
         yield group
@@ -112,3 +118,31 @@ def psum(*tensors):
         out.append(total[i:i + t.numel()].reshape(t.shape).to(t.dtype))
         i += t.numel()
     return tuple(out)
+
+
+def mark_shard(t: torch.Tensor, group) -> torch.Tensor:
+    """Mark ``t`` as this rank's shard of data sharded over ``group``;
+    returns ``t``."""
+    setattr(t, _SHARD_OF, tuple(dist.get_process_group_ranks(group)))
+    return t
+
+
+def data_psum(data, *tensors):
+    """``psum`` of a model's sums over its ``data`` (a sequence of its input
+    tensors): summed over the active data axis when one of ``data`` is a
+    shard of it (``mark_shard``, as ``mesh.shard_along`` and
+    ``host_local_array`` give it), the tensors themselves when no axis is
+    active. Inside an active axis, data that is no shard of it raises: the
+    sum would count a replicated input once a rank, and a tensor derived
+    from a shard inside the loss has lost its mark."""
+    group = active_axis()
+    if group is None:
+        return tensors
+    ranks = tuple(dist.get_process_group_ranks(group))
+    if not any(getattr(d, _SHARD_OF, None) == ranks for d in data):
+        raise ValueError(
+            "a data-axis sum (fit_sharded, collectives.data_axis) was given data that is "
+            "not a shard of that axis: pass the shards that shard_along or fit_sharded "
+            "give, or compute a bound of replicated data inside "
+            "collectives.data_axis(None)")
+    return psum(*tensors)

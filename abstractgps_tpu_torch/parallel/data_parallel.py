@@ -64,6 +64,13 @@ def fit_sharded(loss: Callable, theta0, data, mesh: DeviceMesh, *, axis: str = "
     averaged over the axis before each step, so every rank takes the same
     step and θ stays replicated. ``history[i]`` is the global loss before
     step i.
+
+    Inside, the collapsed bounds (``elbo``, DTC's evidence) sum over the
+    shards that the loss passes them and raise on data that is no shard
+    (``collectives.data_psum``); a bound of replicated data is computed
+    inside ``collectives.data_axis(None)``. Every other objective (the exact
+    logpdf, SVGP's ELBO, ``posterior``) sees this rank's shard only: a loss
+    built on one sums its terms with ``psum``.
     """
     _, w = axis_rank(mesh, axis)
     group = mesh.get_group(axis)

@@ -23,7 +23,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from .collectives import broadcast
+from .collectives import broadcast, mark_shard
 
 __all__ = ["make_mesh", "shard_along", "replicate", "axis_rank", "local_block"]
 
@@ -86,10 +86,11 @@ def local_block(n: int, mesh: DeviceMesh, axis: str) -> tuple[int, int]:
 
 def shard_along(x: torch.Tensor, mesh: DeviceMesh, axis: str = "dp", dim: int = 0) -> torch.Tensor:
     """This rank's contiguous block of ``x`` along ``dim``: the rows that
-    device r of the JAX package's ``NamedSharding(mesh, P(axis))`` holds.
+    device r of the JAX package's ``NamedSharding(mesh, P(axis))`` holds,
+    marked as a shard of the axis (``collectives.data_psum``).
     ``x.shape[dim]`` must divide by the axis size."""
     lo, hi = local_block(x.shape[dim], mesh, axis)
-    return x.narrow(dim, lo, hi - lo)
+    return mark_shard(x.narrow(dim, lo, hi - lo), mesh.get_group(axis))
 
 
 def replicate(tree, mesh: DeviceMesh):

@@ -24,6 +24,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.distance import resolve_device
+from .collectives import mark_shard
 from .mesh import _build, _ensure_group, axis_rank, make_mesh
 
 __all__ = [
@@ -128,4 +129,4 @@ def host_local_array(global_shape, mesh: DeviceMesh, dim: int, local_data, *,
     dev = resolve_device()
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return local.to(dev)
+    return mark_shard(local.to(dev), mesh.get_group(axis))

@@ -1031,6 +1031,21 @@ def forward_kernel_check(name, args, gram_tol=None):
     return err, _tol_rel(kb) * float(want.abs().max()), [nb, B, B]
 
 
+def gram_tile_timing(tag, args):
+    """Device ms of one ``gram_tile`` call on ``args`` beside its bound
+    (bytes: x and z read, the tile written once; operations as
+    ``kernel_checks`` counts them), printed; returns dict(device_ms,
+    bound_ms)."""
+    from abstractgps_tpu_torch.ops import fused_gram
+
+    (rows, d), cols = args[0].shape, args[1].shape[0]
+    b_, by = bound_ms(4.0 * ((rows + cols) * d + rows * cols), rows * cols * (3.0 * d + 12.0))
+    dev_tile = device_ms(lambda: fused_gram.gram_tile(*args))
+    print(f"[kernel gram_tile] {tag} {[rows, cols, d]}: device time per call {_ms(dev_tile)} ms, "
+          f"bound {b_:.4f} ms ({by})", flush=True)
+    return dict(device_ms=dev_tile, bound_ms=b_)
+
+
 def report_checks(tag, out):
     """Print each (error, tolerance, shape[, ok]) of ``out`` under ``tag``;
     returns name → dict(max_abs_err, shape, ok)."""
@@ -1044,7 +1059,7 @@ def report_checks(tag, out):
     return res
 
 
-def hyper_kernel_checks(captured):
+def hyper_kernel_checks(captured, tag="mcmc hyper"):
     """Kernels 1, 2, 4 and 5 against their plain versions on the inputs of
     the first ∇logpdf of hyperparameter NUTS (``captured``: name → first
     call's arguments). Tolerances as in ``kernel_checks``, κ of the slab and
@@ -1055,7 +1070,7 @@ def hyper_kernel_checks(captured):
     r = recs["logpdf_contraction"]
     out["logpdf_contraction"] = (r["max_abs_err"], "x̄ within 2·√n·eps·Σ|terms|, scalars 1e-4",
                                  r["shape"], r["ok"])
-    return report_checks("mcmc hyper", out)
+    return report_checks(tag, out)
 
 
 def run_hyper_nuts(seed, dev):
@@ -2183,14 +2198,7 @@ def run_cg(seed, dev):
         checks[f"gram_bwd {mode}"] = dict(max_abs_err=r["max_abs_err"], shape=r["shape"],
                                           ok=r["ok"], device_ms=r["device_ms"],
                                           bound_ms=r["bound_ms"])
-    # bytes: x and z read, the panel written once; operations as kernel_checks counts them
-    rows, cols = pargs[0].shape[0], pargs[1].shape[0]
-    b_, by = bound_ms(4.0 * ((rows + cols) * c["d"] + rows * cols),
-                      rows * cols * (3.0 * c["d"] + 12.0))
-    dev_tile = device_ms(lambda: fused_gram.gram_tile(*pargs))
-    checks["gram_tile cg panel"].update(device_ms=dev_tile, bound_ms=b_)
-    print(f"[kernel gram_tile] cg panel {list(pargs[0].shape[:1]) + list(pargs[1].shape)}: device "
-          f"time per call {_ms(dev_tile)} ms, bound {b_:.4f} ms ({by})", flush=True)
+    checks["gram_tile cg panel"].update(gram_tile_timing("cg panel", pargs))
     ok = ok and all(r["ok"] for r in checks.values())
     profile_breakdown("cg logpdf", logpdf, top=8)
     profile_breakdown("cg grad", grad, top=8)
@@ -2703,12 +2711,8 @@ def cg_grad_oracle_f64(x, y, xs, solves, s2=1.0, ell=1.0, noise=0.1):
     WWᵀ − uαᵀ; and at the port's own f32 solves (``solves``: name → (X, B)
     for "alpha", "W" and the backward's "W backward" (B̄ = A⁻¹(−Ks)) and
     "alpha backward" (A⁻¹Ks·1)), the formula its backward evaluates: G =
-    α1ᵀ − W + B̄, Ā = −B̄Wᵀ − (A⁻¹Ks·1)αᵀ. Returns both, the rounding scale
-    Σ|terms| of the latter, each solve's true residual norms ‖AX − B‖, and
-    the first-order bound of the CG error from them: an error δ in a solve
-    is A⁻¹r, so |⟨v, δ⟩| ≤ ‖v‖·‖r‖/noise (λ_min ≥ noise), with v over
-    ∂k(x*ⱼ) (x*), ∂Ks's columns and ∂K times the solutions (σ², ℓ), and the
-    solutions themselves (noise)."""
+    α1ᵀ − W + B̄, Ā = −B̄Wᵀ − (A⁻¹Ks·1)αᵀ. Returns both, and each solve's
+    largest true relative residual ‖AX − B‖/‖B‖ over its columns."""
     import torch
 
     n = x.shape[0]
@@ -2716,8 +2720,9 @@ def cg_grad_oracle_f64(x, y, xs, solves, s2=1.0, ell=1.0, noise=0.1):
     with torch.no_grad():
         A = matern32_f64(x, x, s2, ell)
         A.diagonal().add_(noise)
-        out["res"] = {k: (A @ X.double() - B.double()).norm(dim=0).cpu()
-                      for k, (X, B) in solves.items()}
+        out["res_rel"] = {k: float(((A @ X.double() - B.double()).norm(dim=0)
+                                    / B.double().norm(dim=0)).max())
+                          for k, (X, B) in solves.items()}
         L = torch.linalg.cholesky(A)
         del A
         y64, x64, xs64 = y.double(), x.double(), xs.double()
@@ -2741,25 +2746,13 @@ def cg_grad_oracle_f64(x, y, xs, solves, s2=1.0, ell=1.0, noise=0.1):
             g[k] = {"x": c * (xs64 * Ge.sum(0)[:, None] - Ge.T @ x64),
                     "th": [float((G * d).sum()) + (Ks.shape[1] if i == 0 else 0.0)
                            for i, d in enumerate(dKs)]}
-        Ga = Gs["port"].abs() * e
-        x_abs = abs(c) * (Ga.T @ x64.abs() + xs64.abs() * Ga.sum(0)[:, None])
-        th_abs = [float((Gs["port"].abs() * d).sum()) for d in dKs]
-        # ‖∂_d k(·, x*_j)‖ and ‖∂Ks[:, j]‖ for the residual bound
-        e2 = e * e
-        dk_norm = abs(c) * torch.sqrt((e2.T @ (x64 * x64) - 2.0 * xs64 * (e2.T @ x64)
-                                       + xs64 * xs64 * e2.sum(0)[:, None]).clamp_min(0.0))
-        dks_norm = [d.norm(dim=0).cpu() for d in dKs]
-        del t, e, e2, Ga, dKs
-        # ⟨Ā, ∂K⟩ as Σ_pairs ⟨left, ∂K·right⟩, exact (WWᵀ − uαᵀ) and port
-        # (−B̄Wᵀ − u_pα_pᵀ); ‖∂K v‖ for v = W's columns, α, u
+        del t, e, dKs
+        # ⟨Ā, ∂K⟩ as Σ ⟨left, ∂K·right⟩: exact (WWᵀ − uαᵀ), port (−B̄Wᵀ − u_pα_pᵀ)
         m = W.shape[1]
-        R = torch.cat([W, alpha[:, None], W_p, a_p[:, None], u[:, None]], dim=1)
+        R = torch.cat([W, alpha[:, None], W_p, a_p[:, None]], dim=1)
         Lf = {"exact": torch.cat([W, -u[:, None]], dim=1),
               "port": torch.cat([-B_p, -u_p[:, None]], dim=1)}
         cols = {"exact": slice(0, m + 1), "port": slice(m + 1, 2 * m + 2)}
-        Rabs_p = R[:, cols["port"]].abs()
-        dKR2 = torch.zeros(2, R.shape[1], dtype=torch.float64, device=x.device)
-        a_abs = [0.0, 0.0]
         for r0 in range(0, n, 2048):
             rows = slice(r0, r0 + 2048)
             tt = math.sqrt(3.0) / ell * torch.cdist(x64[rows], x64)
@@ -2768,35 +2761,44 @@ def cg_grad_oracle_f64(x, y, xs, solves, s2=1.0, ell=1.0, noise=0.1):
                 P = dK @ R
                 for k in ("exact", "port"):
                     g[k]["th"][i] += float((Lf[k][rows] * P[:, cols[k]]).sum())
-                dKR2[i] += (P * P).sum(0)
-                a_abs[i] += float((Lf["port"][rows].abs() * (dK @ Rabs_p)).sum())
         for k in ("exact", "port"):
             g[k]["th"].append(float((Lf[k] * R[:, cols[k]]).sum()))  # tr(Ā)
-        noise_abs = float((Lf["port"].abs() * Rabs_p).sum())
-        dKV = dKR2.sqrt().cpu()
-        Wn, an, un = W.norm(dim=0).cpu(), float(alpha.norm()), float(u.norm())
     out["grad_x"] = g["exact"]["x"].cpu()
     out["grad_theta"] = torch.tensor(g["exact"]["th"], dtype=torch.float64)
     out["port_x"] = g["port"]["x"].cpu()
     out["port_theta"] = torch.tensor(g["port"]["th"], dtype=torch.float64)
-    rnd = 8.0 * math.sqrt(n) * EPS32
-    out["round_x"] = rnd * x_abs.cpu()
-    out["round_theta"] = rnd * torch.tensor([th_abs[0] + a_abs[0], th_abs[1] + a_abs[1],
-                                             noise_abs], dtype=torch.float64)
-    res = out["res"]
-    r_a, r_w, r_b, r_ab = res["alpha"][0], res["W"], res["W backward"], res["alpha backward"][0]
-    per_point = r_a + r_w + r_b  # the solves behind G's column j
-    out["bound_x"] = dk_norm.cpu() * per_point[:, None] / noise
-    bth = []
-    for i in range(2):
-        kv = dKV[i]
-        bth.append(float((dks_norm[i] * per_point).sum() + (kv[:m] * (r_w + r_b)).sum()
-                         + kv[m] * r_ab + kv[-1] * r_a) / noise)
-    bth.append(float((Wn * (r_w + r_b)).sum() + an * r_ab + un * r_a) / noise)
-    out["bound_theta"] = torch.tensor(bth, dtype=torch.float64)
-    out["res_rel"] = {k: float((v / solves[k][1].detach().double().norm(dim=0).cpu()).max())
-                      for k, v in res.items()}
     return out
+
+
+# the [cg grad] limits, each between the error a right backward shows and
+# the O(1) error of a fault (a sign, a factor, a missing term, a solve
+# against the wrong operator); (e): f32 rounding of the backward's N-term
+# contractions; (f): the CG error of f32 solves to tol √eps32, which costs
+# ∇θ a few per cent and ∇x* far less
+CG_GRAD_LIMITS = {"e theta": 1e-2, "e x*": 1e-2, "f theta": 0.1, "f x*": 1e-2}
+
+
+def cg_grad_verdict(gx, gth, ref, tol):
+    """The [cg grad] checks of the port's ∇x* (``gx``) and ∇(σ², ℓ, noise)
+    (``gth``) against ``cg_grad_oracle_f64``'s ``ref``: (a) each of the four
+    solves' true relative residual within 4·tol, as [cg]'s (a); (e) the ∇
+    against the f64 formula at the port's own solves (the backward's
+    algebra) and (f) against the exact ∇, each ∇θ entry within
+    ``CG_GRAD_LIMITS`` times its size, ∇x* within the limit times
+    max|∇x*|. Returns (ok, error / limit by check: each θ entry, the
+    largest over x*, the largest residual over 4·tol)."""
+    import torch
+
+    ratios = {"a": max(ref["res_rel"].values()) / (4.0 * tol)}
+    for chk, key in (("e", "port"), ("f", "grad")):
+        th, xx = ref[f"{key}_theta"], ref[f"{key}_x"]
+        ratios[f"{chk} theta"] = ((gth - th).abs()
+                                  / (CG_GRAD_LIMITS[f"{chk} theta"] * th.abs())).tolist()
+        ratios[f"{chk} x*"] = float((gx - xx).abs().max()
+                                    / (CG_GRAD_LIMITS[f"{chk} x*"] * xx.abs().max()))
+    finite = bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gth).all())
+    worst = [v if isinstance(v, float) else max(v) for v in ratios.values()]
+    return finite and all(v <= 1.0 for v in worst), ratios
 
 
 def run_cg_grad(seed, dev):
@@ -2804,9 +2806,9 @@ def run_cg_grad(seed, dev):
     posterior's ``mean_and_var`` at 256 points, in x* and in (σ², ℓ, noise)
     (caller tensors), at the [cg] configuration (``CGInference()``'s
     defaults); launches of the forward and of the backward, the backward's
-    host ms, and the ∇ against ``cg_grad_oracle_f64`` within the bound that
-    the measured residuals of the forward and backward solves give. Returns
-    (ok, launches by run)."""
+    host ms, and the ∇ against ``cg_grad_oracle_f64`` (``cg_grad_verdict``:
+    the four solves' residuals, the backward's algebra and the CG error).
+    Returns (ok, launches by run)."""
     import torch
 
     import abstractgps_tpu_torch as agt
@@ -2851,34 +2853,26 @@ def run_cg_grad(seed, dev):
     gth = torch.stack(grads[1:]).double().cpu()
     ref = cg_grad_oracle_f64(x, y, xs, solves, noise=c["noise"])
     torch.cuda.empty_cache()
-    # (e) the port's ∇ against the f64 evaluation of the same formula at its
-    # own solves: its backward's algebra, to f32 rounding; (f) that f64
-    # evaluation against the exact ∇: the CG error, within the residual bound
-    ex = (gx - ref["port_x"]).abs()
-    eth = (gth - ref["port_theta"]).abs()
-    cx = (ref["port_x"] - ref["grad_x"]).abs()
-    cth = (ref["port_theta"] - ref["grad_theta"]).abs()
-    ok_e = (bool(torch.isfinite(gx).all()) and bool(torch.isfinite(gth).all())
-            and bool((ex <= ref["round_x"]).all()) and bool((eth <= ref["round_theta"]).all()))
-    ok_f = bool((cx <= ref["bound_x"]).all()) and bool((cth <= ref["bound_theta"]).all())
-    ok = ok_e and ok_f and all(runs["cg grad backward"].get(k, 0) > 0 for k in CG_KERNELS)
+    tol = torch.finfo(torch.float32).eps ** 0.5  # mbcg's default, as [cg]'s
+    ok, ratios = cg_grad_verdict(gx, gth, ref, tol)
+    ok = ok and all(runs["cg grad backward"].get(k, 0) > 0 for k in CG_KERNELS)
+
+    def fmt(v):
+        return [float(f"{u:.3e}") for u in v] if isinstance(v, list) else float(f"{v:.3e}")
+
     print(f"[cg grad] N={c['n']} D={c['d']} f32, ∇ of Σmean + Σvar of mean_and_var at "
           f"{CG_GRAD_M} points: launches forward {json.dumps(runs['cg grad forward'])}, "
           f"backward {json.dumps(runs['cg grad backward'])}; backward host ms {bwd_ms:.3f}; "
-          f"true f64 relative residuals "
-          f"max {json.dumps({k: float(f'{v:.3e}') for k, v in ref['res_rel'].items()})}",
-          flush=True)
+          f"(a) true f64 relative residuals max "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in ref['res_rel'].items()})} (limit "
+          f"4·tol = {4 * tol:.3e})", flush=True)
     print(f"[cg grad] ∇(s2, ell, noise) {[round(v, 5) for v in gth.tolist()]}; (e) the f64 "
-          f"formula at the port's solves {[round(v, 5) for v in ref['port_theta'].tolist()]}, "
-          f"error {[float(f'{v:.3e}') for v in eth.tolist()]}, / 8·√N·eps·Σ|terms| "
-          f"{[round(v, 4) for v in (eth / ref['round_theta']).tolist()]}"
-          f"; ∇x* max error {float(ex.max()):.3e}, largest error / rounding bound "
-          f"{float((ex / ref['round_x']).max()):.4f}; (f) exact f64 "
-          f"{[round(v, 5) for v in ref['grad_theta'].tolist()]}: CG error "
-          f"{[float(f'{v:.3e}') for v in cth.tolist()]}, / residual bound "
-          f"{[float(f'{v:.3e}') for v in (cth / ref['bound_theta']).tolist()]}; ∇x* CG error max "
-          f"{float(cx.max()):.3e} (max|∇x*| {float(ref['grad_x'].abs().max()):.3e}), / bound max "
-          f"{float((cx / ref['bound_x']).max()):.3e}; {'ok' if ok else 'FAIL'}", flush=True)
+          f"formula at the port's solves {[round(v, 5) for v in ref['port_theta'].tolist()]}; "
+          f"(f) exact f64 {[round(v, 5) for v in ref['grad_theta'].tolist()]}; max|∇x*| "
+          f"{float(ref['grad_x'].abs().max()):.3e}; error / limit "
+          f"{json.dumps({k: fmt(v) for k, v in ratios.items()})} (limits "
+          f"{json.dumps(CG_GRAD_LIMITS)} of |∇θ| entry by entry and of max|∇x*|); "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     return ok, runs
 
 
@@ -2966,7 +2960,14 @@ def _dp_rank(rank, world, store, outdir, seed, sizes, dev_type):
     out["rows"] = xl.shape[0]
     # fit_sharded: per step launches, collectives and ms, after one warm step
     # (a process's first optimizer step pays one-off imports)
-    fit_sharded(dp_loss, theta0, (x, y), mesh, num_steps=1, learning_rate=3e-2)
+    # rank 0 keeps the kernels' inputs of this step for the parent's checks
+    with capture_first_input("gram_tile", "fused_gram", key=_sym_key) as c1, \
+            capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as c6:
+        fit_sharded(dp_loss, theta0, (x, y), mesh, num_steps=1, learning_rate=3e-2)
+    if rank == 0:
+        torch.save({"gram_tile": c1.calls, "gram_bwd": c6.calls},
+                   os.path.join(outdir, "dp_kernel_inputs.pt"))
+    del c1, c6
     sync()
     col.reset_collectives()
     cuda.reset_launches()
@@ -3111,10 +3112,18 @@ def run_dp(seed, dev):
     init = init_chain_positions(seed, torch.zeros(3, dtype=torch.float32, device=dev),
                                 num_chains=DP["chains"], jitter=hc["jitter"])
     fgrad = logdensity_and_grad(hyper_logdensity(xh, yh), lambda v: v, "loop")
-    reset_launches()
-    fgrad(init[:1])
-    torch.cuda.synchronize()
-    per_grad = read_launches()
+    # rank 0's first ∇logpdf, on the same data and chain: its kernels' inputs
+    with capture_first_input("gram_tile", "fused_gram") as c1, \
+            capture_first_input("slab_factor") as c2, \
+            capture_first_input("tri_inv_block") as c4, \
+            capture_first_input("logpdf_contraction", "fused_gram") as c5:
+        reset_launches()
+        fgrad(init[:1])
+        torch.cuda.synchronize()
+        per_grad = read_launches()
+    nuts_in = {"gram_tile": c1.calls.get(None), "slab_factor": c2.calls.get(None),
+               "tri_inv_block": c4.calls.get(None), "logpdf_contraction": c5.calls.get(None)}
+    del c1, c2, c4, c5
     for r, res in enumerate(ranks):
         good = (res["nuts_finite"] and not any(res["nuts_collectives"].values())
                 and res["nuts_chains"] == [DP["chains"] // w, DP["draws"], 3]
@@ -3131,7 +3140,38 @@ def run_dp(seed, dev):
         runs[f"dp nuts rank {r}"] = res["nuts_launches"]
     print(f"[dp] the 2-rank world (spawn, build loaded, both phases, join) took {spawn_s:.1f} s",
           flush=True)
-    return ok, runs
+    checks = dp_kernel_checks(torch.load(os.path.join(tmp, "dp_kernel_inputs.pt"),
+                                         map_location=dev, weights_only=False), nuts_in)
+    ok = ok and all(r["ok"] for r in checks.values())
+    return ok, runs, checks
+
+
+def dp_kernel_checks(elbo_in, nuts_in):
+    """The kernels of [dp elbo] and [dp nuts] against their plain versions
+    on the path's own inputs: ``elbo_in`` holds rank 0's ``gram_tile``
+    (Kxz on its 25 000-row shard, Kzz) and ``gram_bwd`` (three modes)
+    arguments of one ``fit_sharded`` step, ``nuts_in`` those of the first
+    ∇logpdf of rank 0's first chain. Tolerances as in [sparse] and [mcmc
+    hyper]; the gram tiles and the backward's modes timed beside their
+    bounds. Returns name → dict(max_abs_err, shape, ok[, device_ms,
+    bound_ms])."""
+    import torch
+
+    out = {f"gram_tile {'sym' if k else 'cross'}": forward_kernel_check("gram_tile", a)
+           for k, a in elbo_in["gram_tile"].items()}
+    with torch.no_grad():
+        bwd = gram_bwd_checks(elbo_in["gram_bwd"], tag="dp elbo gram_bwd")
+    out["gram_bwd"] = (bwd["max_abs_err"], "x̄ within 2·√m·eps·Σ|terms|, scalars 1e-4",
+                       {m_: r["shape"] for m_, r in bwd["modes"].items()}, bwd["ok"])
+    checks = report_checks("dp elbo", out)
+    for k, a in elbo_in["gram_tile"].items():
+        checks[f"gram_tile {'sym' if k else 'cross'}"].update(
+            gram_tile_timing(f"dp elbo {'sym' if k else 'cross'}", a))
+    for mode, r in bwd["modes"].items():
+        checks[f"gram_bwd {mode}"] = {f: r[f] for f in ("max_abs_err", "shape", "ok",
+                                                       "device_ms", "bound_ms")}
+    checks.update({f"{k} nuts": v for k, v in hyper_kernel_checks(nuts_in, "dp nuts").items()})
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -3261,7 +3301,7 @@ def main(argv=None) -> int:
 
     # ---- the data-parallel layer: a 2-rank world on the one card -----------
     t0 = time.perf_counter()
-    dp_ok, runs_dp = run_dp(args.seed, dev)
+    dp_ok, runs_dp, checks_dp = run_dp(args.seed, dev)
     torch.cuda.empty_cache()
     ok = ok and dp_ok
     print(f"[dp] phases took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3462,7 +3502,7 @@ def main(argv=None) -> int:
     path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online,
                  "cg": runs_cg, "pathwise": runs_pw, "markov": runs_mk, "dp": runs_dp}
     path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online,
-                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk, "dp": {}}
+                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk, "dp": checks_dp}
 
     def slice_paths(name):
         # each later slice's path: its launches of the kernel (by run) and its

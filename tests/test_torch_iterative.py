@@ -423,3 +423,69 @@ def test_cg_rejects_dense_noise_and_non_gp_prior(rng):
     p = agt.posterior(fxt, _t(y))  # a PosteriorGP prior, not a kernel GP
     with pytest.raises(NotImplementedError):
         ti.cg_logpdf(p(fxt.x, 0.1), _t(y))
+
+
+def _fault(name, monkeypatch):
+    """Put one fault into the CG posterior's backward (``_CGSolve``)."""
+    bwd, solve = ti._CGSolve.backward, ti._cg_solve
+    if name == "gram cotangent sign":
+        vjp = ti._contract_gram_vjp
+        monkeypatch.setattr(ti, "_contract_gram_vjp",
+                            lambda k, x, p, L, R, **kw: vjp(k, x, p, -L, R, **kw))
+        return
+    edit = {"B̄ sign": lambda g: g[:3] + (-g[3],) + g[4:],
+            "B̄ 100×": lambda g: g[:3] + (100.0 * g[3],) + g[4:],
+            "noise sign": lambda g: g[:2] + (-g[2],) + g[3:],
+            "noise term missing": lambda g: g[:2] + (torch.zeros_like(g[2]),) + g[3:]}
+
+    def faulty(ctx, Xbar):
+        if name == "wrong operator":  # the backward's solve against A + noise·I
+            monkeypatch.setattr(ti, "_cg_solve",
+                                lambda k, x, nd, B, Lk, o: solve(k, x, 2.0 * nd, B, Lk, o))
+            try:
+                return bwd(ctx, Xbar)
+            finally:
+                monkeypatch.setattr(ti, "_cg_solve", solve)
+        return edit[name](bwd(ctx, Xbar))
+
+    monkeypatch.setattr(ti._CGSolve, "backward", staticmethod(faulty))
+
+
+@pytest.mark.parametrize("fault", [None, "gram cotangent sign", "B̄ sign", "B̄ 100×", "noise sign",
+                                   "noise term missing", "wrong operator"])
+def test_chip_smoke_cg_grad_check_fails_a_faulted_backward(fault, monkeypatch):
+    # chip_smoke.py's [cg grad] verdict at f64, N = 256: the port's backward
+    # passes; each fault of the backward fails it (the f64 CG error is ~1e-5
+    # of each limit, a fault's error ≥ 10 limits)
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(0)
+    x, y, xs = (_t(a) for a in (rng.uniform(size=(256, 8)), rng.normal(size=256),
+                                rng.uniform(size=(16, 8))))
+    if fault:
+        _fault(fault, monkeypatch)
+    th = [torch.tensor(v, dtype=F64, requires_grad=True) for v in (1.0, 1.0, 0.1)]
+    xst = xs.clone().requires_grad_()
+    calls = []
+    mbcg = ti.mbcg
+
+    def spy(mv, B, **kw):
+        out = mbcg(mv, B, **kw)
+        calls.append((out[0], B))
+        return out
+
+    monkeypatch.setattr(ti, "mbcg", spy)
+    fx = agt.GP(th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1]))(x, th[2])
+    m, v = agt.posterior(agt.CGInference(), fx, y).mean_and_var(xst)
+    got = torch.autograd.grad(m.sum() + v.sum(), [xst, *th])
+    solves = {"alpha": calls[0], "W": calls[1]}
+    for X, B in calls[2:]:
+        solves["alpha backward" if B.shape[1] == 1 else "W backward"] = (X, B)
+    ref = cs.cg_grad_oracle_f64(x, y, xs, solves, noise=0.1)
+    ok, ratios = cs.cg_grad_verdict(got[0], torch.stack(got[1:]), ref,
+                                    torch.finfo(F64).eps ** 0.5)
+    assert ok == (fault is None), ratios

@@ -164,6 +164,22 @@ def test_fit_sharded_runs_and_improves(world):
                                                  "broadcast": 4}
 
 
+def test_replicated_bound_inside_fit_sharded_counts_once(world):
+    # a bound of replicated data inside data_axis(None) adds its value once,
+    # not once a rank: the sharded history equals the unsharded fit's
+    _, w4, _ = world
+    for res in w4:
+        r = res["replicated"]
+        np.testing.assert_allclose(r["history"], r["unsharded"], rtol=1e-8)
+
+
+def test_collapsed_bound_raises_on_data_that_is_no_shard(world):
+    _, w4, _ = world
+    for res in w4:
+        # replicated x, y and a shard's derived copy raise; one marked input sums
+        assert res["replicated"]["raises"] == [True, True, True]
+
+
 def test_replicate_shard_along_and_host_local_array(world):
     _, w4, _ = world
     g = np.arange(24.0).reshape(8, 3)

@@ -197,6 +197,28 @@ def world4(rank, world, d):
     if rank == 0:
         ref = agt.fit(lambda rt: loss_raw(rt, (x, y)), raw, num_steps=60, learning_rate=5e-2)
         out["fit"]["unsharded"] = ref.history.tolist()
+    # -- a bound of replicated data inside fit_sharded ----------------------------
+    # the loss adds the collapsed bound of the 64 replicated points of the
+    # logpdf check, inside data_axis(None): counted once, as unsharded
+    xr, yr = torch.as_tensor(inp["xl"]), torch.as_tensor(inp["yl"])
+
+    def loss_rep(rt, data):
+        with collectives.data_axis(None):
+            rep = elbo_loss(P.constrain(rt), (xr, yr), None)
+        return loss_raw(rt, data) + rep
+
+    res = fit_sharded(loss_rep, raw, (x, y), mesh, num_steps=3, learning_rate=5e-2)
+    ref = agt.fit(lambda rt: loss_rep(rt, (x, y)), raw, num_steps=3, learning_rate=5e-2)
+    out["replicated"] = {"history": res.history.tolist(),
+                         "unsharded": ref.history.tolist()}
+    # data that is no shard of the active axis raises: replicated data, a
+    # tensor derived from a shard inside the loss; the shards themselves sum
+    xs_, ys_ = shard_along(x, mesh), shard_along(y, mesh)
+    with collectives.data_axis(group):
+        out["replicated"]["raises"] = [
+            _raises(lambda: elbo_loss(theta, (x, y), z)),
+            _raises(lambda: elbo_loss(theta, (xs_ * 1.0, ys_ * 1.0), z)),
+            not _raises(lambda: elbo_loss(theta, (xs_, ys_ * 1.0), z))]
     # -- chain-sharded NUTS -----------------------------------------------------
     init = init_chain_positions(1, torch.zeros(3, dtype=F64), num_chains=8)
     kw = dict(num_samples=40, num_warmup=40, num_chains=8, max_depth=6)
