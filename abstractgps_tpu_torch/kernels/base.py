@@ -41,6 +41,7 @@ __all__ = [
     "FunctionTransform",
     "with_lengthscale",
     "hyperparameters",
+    "substituted_hyperparameters",
     "compose",
     "kernelmatrix",
     "kernelmatrix_diag",
@@ -252,6 +253,39 @@ def hyperparameters(module: nn.Module) -> list:
 
 
 @contextlib.contextmanager
+def substituted_hyperparameters(module: nn.Module, sub):
+    """Within the block, every hyperparameter tensor ``t`` of the module
+    tree (its ``nn.Parameter``s, plain tensor attributes and the tensors
+    nested in lists, tuples and dicts held as attributes) reads as
+    ``sub(t)`` wherever that is another tensor; restored on exit."""
+    swaps = []
+    for m in module.modules():
+        for name, v in list(m._parameters.items()):
+            new = v if v is None else sub(v)
+            if new is not v:
+                swaps.append((m._parameters, name, v))
+                m._parameters[name] = new
+        for name, v in list(vars(m).items()):
+            if isinstance(v, torch.Tensor):
+                new = sub(v)
+            elif isinstance(v, (list, tuple, dict)) and not name.startswith("_"):
+                old = leaves(v)
+                subbed = [sub(t) for t in old]
+                # rebuild a container only where one of its leaves changed
+                new = v if all(a is b for a, b in zip(old, subbed)) else with_leaves(v, subbed)
+            else:
+                continue
+            if new is not v:
+                swaps.append((m.__dict__, name, v))
+                m.__dict__[name] = new
+    try:
+        yield
+    finally:
+        for d, name, v in reversed(swaps):
+            d[name] = v
+
+
+@contextlib.contextmanager
 def leaf_hyperparameters(module: nn.Module):
     """Within the block, every hyperparameter tensor of the module tree that
     is not a leaf of the autograd graph (a caller's tensor computed from
@@ -260,34 +294,17 @@ def leaf_hyperparameters(module: nn.Module):
     differentiates the kernel again then stops at the alias, where it would
     otherwise run on into the caller's graph, whose buffers the outer
     backward still needs. Yields ``{id(original): alias}``."""
-    alias, swaps = {}, []
+    alias = {}
 
     def sub(t):
-        if isinstance(t, torch.Tensor) and t.requires_grad and t.grad_fn is not None:
+        if t.requires_grad and t.grad_fn is not None:
             if id(t) not in alias:
                 alias[id(t)] = t.detach().requires_grad_()
             return alias[id(t)]
         return t
 
-    for m in module.modules():
-        for name, v in list(vars(m).items()):
-            if isinstance(v, torch.Tensor):
-                new = sub(v)
-            elif isinstance(v, (list, tuple, dict)) and not name.startswith("_"):
-                old = leaves(v)
-                subbed = [sub(t) for t in old]
-                # rebuild a container only where one of its leaves was aliased
-                new = v if all(a is b for a, b in zip(old, subbed)) else with_leaves(v, subbed)
-            else:
-                continue
-            if new is not v:
-                swaps.append((m, name, v))
-                m.__dict__[name] = new
-    try:
+    with substituted_hyperparameters(module, sub):
         yield alias
-    finally:
-        for m, name, v in reversed(swaps):
-            m.__dict__[name] = v
 
 
 def compose(kernel: Kernel, transform) -> TransformedKernel:

@@ -1,7 +1,8 @@
 """Multi-process SPMD execution over ``torch.distributed``: meshes, the
-data-parallel collapsed ELBO and training loop, and the multi-process
-runtime. Counterpart of the JAX package's ``parallel`` layer (its
-``sharded_linalg`` is not ported yet; ``P`` and ``NamedSharding`` have no
+data-parallel collapsed ELBO and training loop, the tensor-parallel exact
+GP (the block-cyclic distributed Cholesky, ``sharded_logpdf``,
+``sharded_mean_and_var``), and the multi-process runtime. Counterpart of
+the JAX package's ``parallel`` layer (``P`` and ``NamedSharding`` have no
 counterpart: a shard here is this rank's block, ``shard_along``)."""
 
 from .data_parallel import ShardedFitResult, fit_sharded
@@ -12,6 +13,12 @@ from .multihost import (
     is_distributed,
     make_pod_mesh,
 )
+from .sharded_linalg import (
+    distributed_cholesky,
+    sharded_gram,
+    sharded_logpdf,
+    sharded_mean_and_var,
+)
 
 __all__ = [
     "make_mesh",
@@ -19,6 +26,10 @@ __all__ = [
     "replicate",
     "fit_sharded",
     "ShardedFitResult",
+    "distributed_cholesky",
+    "sharded_gram",
+    "sharded_logpdf",
+    "sharded_mean_and_var",
     "initialize_distributed",
     "is_distributed",
     "make_pod_mesh",

@@ -14,10 +14,17 @@ backward carries W times its own shard's term plus the replicated terms
 once, and the replicated parameters' gradients are then averaged over the
 ranks (``fit_sharded``), which gives exactly the global gradient.
 
+The tensor-parallel sweep (``sharded_linalg``) moves blocks between ranks
+with ``all_gather`` and ``broadcast_from``, both differentiable by their
+exact adjoints: the backward sums the cotangents of every rank's copy
+(one all-reduce) and hands the source its part. Its replicated inputs go
+through ``replicated``, whose backward averages their cotangents over the
+ranks, so that every rank gets the global gradient.
+
 Every collective of the layer goes through this module and adds to
 ``COLLECTIVES`` (calls) and ``COLLECTIVE_BYTES`` (bytes this rank sends in:
 the tensor's size), the eager counterpart of counting collective ops in a
-compiled program.
+compiled program; a backward's all-reduce counts as one.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVES", "COLLECTIVE_BYTES", "reset_collectives", "all_reduce", "all_gather",
-           "broadcast", "data_axis", "active_axis", "psum", "mark_shard", "data_psum"]
+           "broadcast", "broadcast_from", "replicated", "data_axis", "active_axis", "psum",
+           "mark_shard", "data_psum"]
 
 COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 COLLECTIVE_BYTES = dict.fromkeys(COLLECTIVES, 0)
@@ -56,21 +64,66 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+class _AllGather(torch.autograd.Function):
+    """Every rank's block, concatenated; the backward all-reduces the
+    cotangent and keeps this rank's block (gloo has no reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        t = t.contiguous()
+        ctx.group, ctx.rows = group, t.shape[0]
+        ctx.rank = dist.get_rank(group)
+        outs = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        _count("all_gather", t)
+        dist.all_gather(outs, t, group=group)
+        return torch.cat(outs)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.group)
+        return None, g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
+
+
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0, in group-rank order."""
-    t = t.contiguous()
-    outs = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    _count("all_gather", t)
-    dist.all_gather(outs, t, group=group)
-    return torch.cat(outs)
+    """Every rank's ``t`` (one shape on every rank) concatenated along dim
+    0, in group-rank order; differentiable."""
+    return _AllGather.apply(group, t)
 
 
-def broadcast(t: torch.Tensor, group=None) -> torch.Tensor:
-    """``t`` of the group's first rank, written in place on every rank."""
-    src = 0 if group is None else dist.get_global_rank(group, 0)
+def _global_rank(group, src: int) -> int:
+    return src if group is None else dist.get_global_rank(group, src)
+
+
+def broadcast(t: torch.Tensor, group=None, src: int = 0) -> torch.Tensor:
+    """``t`` of group rank ``src``, written in place on every rank (no
+    autograd); returns ``t``."""
     _count("broadcast", t)
-    dist.broadcast(t, src=src, group=group)
+    dist.broadcast(t, src=_global_rank(group, src), group=group)
     return t
+
+
+class _BroadcastFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, src, t, *after):
+        ctx.group, ctx.mine = group, dist.get_rank(group) == src
+        return broadcast(t.detach().contiguous().clone(), group, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous().clone(), ctx.group)
+        return (None, None, g if ctx.mine else None) + (None,) * len(ctx.needs_input_grad[3:])
+
+
+def broadcast_from(t: torch.Tensor, src: int, group=None, after=()) -> torch.Tensor:
+    """A new tensor holding group rank ``src``'s ``t`` on every rank (the
+    others pass any tensor of its shape and dtype; its values are not
+    read). Differentiable: the backward sums every rank's cotangent into
+    ``src``'s ``t``. ``after`` are tensors of this rank's graph that the
+    result is made to depend on: a rank other than ``src`` often holds no
+    input of its own that requires grad, and without them its backward
+    would never reach this collective, or reach it in another order than
+    ``src``'s."""
+    return _BroadcastFrom.apply(group, src, t, *after)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -84,6 +137,38 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, all_reduce(g.detach().clone(), ctx.group)
+
+
+class _Replicated(torch.autograd.Function):
+    """The identity; the backward averages the cotangents over the ranks."""
+
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        return tuple(t.clone() for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        dev = gs[0].device
+        dtype = functools.reduce(torch.promote_types, (g.dtype for g in gs))
+        flat = all_reduce(torch.cat([g.reshape(-1).to(dev, dtype) for g in gs]), ctx.group)
+        flat = flat / dist.get_world_size(ctx.group)
+        out, i = [], 0
+        for g in gs:
+            out.append(flat[i:i + g.numel()].reshape(g.shape).to(g.device, g.dtype))
+            i += g.numel()
+        return (None, *out)
+
+
+def replicated(group, *tensors):
+    """The tensors, which every rank of ``group`` holds alike, as the inputs
+    of one computation spread over the ranks (a tuple of copies). The
+    backward averages their cotangents over the ranks in one packed
+    all-reduce: where the spread computation's collectives carry their exact
+    adjoints and every rank seeds its copy of the replicated result, the
+    ranks' cotangents sum to W times the gradient, so every rank gets the
+    gradient itself."""
+    return _Replicated.apply(group, *tensors)
 
 
 @contextlib.contextmanager

@@ -2001,8 +2001,8 @@ def run_cg(seed, dev):
     ``torch.autograd.grad`` with respect to (σ², ℓ, noise) (caller tensors),
     ``CGInference().posterior(fx, y)``, ``mean`` at 4096 points and
     ``mean_and_var`` at 256, at the configuration ``CG``; each counted, then
-    timed over 3 warm calls; the ∇ again at probe seeds 1-3 for its spread;
-    the logpdf again with ``fused_gram.set_enabled(False)``; the kernels
+    timed over one warm call (three of ``mean``); the ∇ again at probe seeds
+    1-3 for its spread; the logpdf again with ``fused_gram.set_enabled(False)``; the kernels
     against their plain versions on the path's own inputs; checks (a)-(d)
     against ``cg_oracle_f64``. Returns (ok, launches by run, the kernels'
     checks by name)."""
@@ -2080,18 +2080,20 @@ def run_cg(seed, dev):
         W = mb.calls[0][1][0]
         mv_steps = steps(mb.calls[0][1][1][2])
         del mb
+    # one warm call of each seconds-long call (the script's time limit), 3 of mean
     times = {
-        "logpdf": host_ms(logpdf),
-        "grad": host_ms(grad),
-        "posterior": host_ms(lambda: agt.posterior(inf, fx_of([t.detach() for t in theta]), y)),
+        "logpdf": host_ms(logpdf, 1),
+        "grad": host_ms(grad, 1),
+        "posterior": host_ms(lambda: agt.posterior(inf, fx_of([t.detach() for t in theta]), y),
+                             1),
         "mean": host_ms(lambda: post.mean(xs)),
-        "mean_and_var": host_ms(lambda: post.mean_and_var(xs_v)),
+        "mean_and_var": host_ms(lambda: post.mean_and_var(xs_v), 1),
     }
     probe_steps = lp_steps[1:]
     panels = -(-n // inf.panel) if n > inf.max_dense_n else "no (dense)"
     print(f"[cg] N={n} D={c['d']} f32, CGInference() (32 probes, 256 steps, rank-64 "
-          f"preconditioner), {panels} panels a matvec: logpdf {float(lp):.4f}; host ms over 3 "
-          f"warm calls (each ending in a synchronize): "
+          f"preconditioner), {panels} panels a matvec: logpdf {float(lp):.4f}; host ms of warm "
+          f"calls (each ending in a synchronize): "
           + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in t)}" for k, t in times.items())
           + f"; peak memory of the ∇ above its inputs {peak_gib:.3f} GiB", flush=True)
     print(f"[cg] steps each column stayed active (of 256): logpdf data column {lp_steps[0]}, "
@@ -2910,9 +2912,9 @@ def dp_loss(rt, data):
 
 
 def _dp_rank(rank, world, store, outdir, seed, sizes, dev_type):
-    """One rank of the [dp elbo] / [dp nuts] world (``torch.multiprocessing``
-    spawn target; ``sizes`` are the parent's SPARSE, HYPER and DP): results
-    to ``outdir/dp_rank<r>.json``."""
+    """One rank of the [dp elbo] / [dp nuts] / [tp ...] world
+    (``torch.multiprocessing`` spawn target; ``sizes`` are the parent's
+    SPARSE, HYPER, DP, CG and TP): results to ``outdir/dp_rank<r>.json``."""
     import torch
 
     import abstractgps_tpu_torch as agt
@@ -3012,6 +3014,7 @@ def _dp_rank(rank, world, store, outdir, seed, sizes, dev_type):
     out["nuts_chains"] = list(r.positions.shape)
     out["nuts_finite"] = bool(torch.isfinite(r.positions).all() and torch.isfinite(r.logdens).all())
     out["nuts_leapfrogs"] = int(r.num_steps.sum())
+    out["tp"] = _tp_rank(rank, world, outdir, seed, dev, sync)
     with open(os.path.join(outdir, f"dp_rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     torch.distributed.destroy_process_group()
@@ -3025,7 +3028,9 @@ def run_dp(seed, dev):
     ``fit_sharded`` steps against the unsharded ``fit`` of the same loss
     here, with each rank's launches, collectives and ms per step. [dp nuts]:
     chain-sharded hyper NUTS at the [mcmc hyper] target, 2 chains a rank.
-    Returns (ok, launches by run)."""
+    The same world then runs the tp phases (``_tp_rank``; ``run_tp`` checks
+    them). Returns (ok, launches by run, the kernels' checks, (the world's
+    directory, each rank's results))."""
     import tempfile
 
     import torch
@@ -3038,7 +3043,7 @@ def run_dp(seed, dev):
     w = DP["world"]
     tmp = tempfile.mkdtemp(prefix="dp_")
     t0 = time.perf_counter()
-    sizes = {"SPARSE": SPARSE, "HYPER": HYPER, "DP": DP}
+    sizes = {"SPARSE": SPARSE, "HYPER": HYPER, "DP": DP, "CG": CG, "TP": TP}
     mp.spawn(_dp_rank, args=(w, os.path.join(tmp, "store"), tmp, seed, sizes, dev.type),
              nprocs=w, join=True)
     spawn_s = time.perf_counter() - t0
@@ -3143,7 +3148,7 @@ def run_dp(seed, dev):
     checks = dp_kernel_checks(torch.load(os.path.join(tmp, "dp_kernel_inputs.pt"),
                                          map_location=dev, weights_only=False), nuts_in)
     ok = ok and all(r["ok"] for r in checks.values())
-    return ok, runs, checks
+    return ok, runs, checks, (tmp, ranks)
 
 
 def dp_kernel_checks(elbo_in, nuts_in):
@@ -3172,6 +3177,234 @@ def dp_kernel_checks(elbo_in, nuts_in):
                                                        "device_ms", "bound_ms")}
     checks.update({f"{k} nuts": v for k, v in hyper_kernel_checks(nuts_in, "dp nuts").items()})
     return checks
+
+
+# ---------------------------------------------------------------------------
+# [tp logpdf], [tp pred], [tp grad]: the tensor-parallel exact GP in the
+# 2-rank world; [tp 1-rank]: the JAX package's own chip check, in a world of one
+# ---------------------------------------------------------------------------
+
+# [tp logpdf] and [tp pred] run on the [cg] data (N = 32 768, D = 8, 4096 test
+# points; σ²·Matérn-3/2 at σ² = ℓ = 1, noise 0.1, f32) at panels of 256, the
+# JAX default: 128 panels, 64 a rank. [tp grad]: the main path's problem
+# (make_problem at N = 8192, M = 4096). [tp 1-rank]: examples/validate_tpu.py:
+# 82-91 (N = 16 384, block 512). ``timed``: the warm calls timed after the
+# counted one.
+TP = dict(block=256, grad_n=8192, grad_m=4096, one_n=16384, one_block=512, timed=2)
+TP_LAUNCHES = {"logpdf": {"gram_tile": 1}, "pred": {"gram_tile": 2},
+               "grad": {"gram_tile": 1, "gram_bwd": 2}}
+TP_ONE_LIMIT = 1e-3  # examples/validate_tpu.py:90, relative to the dense logpdf
+
+
+def tp_collectives(nb: int, grad: bool = False) -> dict:
+    """The collectives of one sweep of ``nb`` panels: a broadcast of the
+    owner's block each panel, an all_gather of the panel column each panel
+    but the last; with the ∇ an all-reduce for each of them and one for the
+    replicated inputs."""
+    return {"all_reduce": 2 * nb if grad else 0, "all_gather": nb - 1, "broadcast": nb}
+
+
+def _tp_rank(rank, world, outdir, seed, dev, sync):
+    """[tp logpdf], [tp pred] and [tp grad] on this rank of the 2-rank world
+    (``make_mesh(2, ("tp",))``): each counted (launches, collectives, bytes,
+    host ms) in its first call, then timed over ``TP["timed"]`` warm calls;
+    rank 0 profiles one logpdf and one prediction (rank 1 makes the same
+    calls, which meet rank 0's in the collectives) and saves its kernels'
+    inputs for the parent. Returns this rank's results."""
+    import torch
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.ops import cuda
+    from abstractgps_tpu_torch.parallel import make_mesh, sharded_logpdf, sharded_mean_and_var
+    from abstractgps_tpu_torch.parallel import collectives as col
+
+    c = TP
+    mesh = make_mesh(world, ("tp",))
+    x, y, xs = cg_data(seed + 50, dev)
+    kernel = make_kernel(1.0, 1.0, dev, torch.float32)
+
+    def logpdf():
+        with torch.no_grad():
+            return sharded_logpdf(agt.GP(kernel)(x, NOISE), y, mesh, block=c["block"])
+
+    def pred():
+        with torch.no_grad():
+            return sharded_mean_and_var(agt.GP(kernel)(x, NOISE), y, xs, mesh, block=c["block"])
+
+    xg, yg, _, s2, ell = make_problem(seed, c["grad_n"], c["grad_m"], CG["d"], dev,
+                                      torch.float32)
+    theta = caller_theta(s2, ell, dev, torch.float32)
+
+    def grad():
+        s2_, ell_, noise = theta
+        fx = agt.GP(s2_ * agt.with_lengthscale(agt.Matern32Kernel(), ell_))(xg, noise)
+        lp = sharded_logpdf(fx, yg, mesh, block=c["block"])
+        return torch.stack(torch.autograd.grad(lp, theta))
+
+    out, inputs = {}, {}
+    for name, fn, kname, key in (("logpdf", logpdf, "gram_tile", lambda a: a[1].shape[0]),
+                                 ("pred", pred, "gram_tile", lambda a: a[1].shape[0]),
+                                 ("grad", grad, "gram_bwd", lambda a: a[6])):
+        with capture_first_input(kname, "fused_gram", key=key) as cap:
+            sync()
+            col.reset_collectives()
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            r = {"first_ms": (time.perf_counter() - t0) * 1e3, "launches": dict(cuda.LAUNCHES),
+                 "collectives": dict(col.COLLECTIVES), "bytes": dict(col.COLLECTIVE_BYTES)}
+        inputs[name] = cap.calls
+        res = res if isinstance(res, tuple) else (res,)
+        r["value"] = [t.double().cpu().reshape(-1).tolist() for t in res]
+        r["ms"] = host_ms(fn, c["timed"])
+        if name != "grad":
+            if rank == 0 and dev.type == "cuda":
+                profile_breakdown(f"tp {name} rank 0", fn, top=8)
+            else:  # the partner of rank 0's two profiled calls
+                fn()
+                fn()
+        out[name] = r
+    if rank == 0:
+        torch.save(inputs, os.path.join(outdir, "tp_kernel_inputs.pt"))
+    return out
+
+
+def tp_oracle_f64(x, y, xs=None, s2=1.0, ell=1.0, noise=NOISE):
+    """Dense f64 reference of the tp phases on the card, written apart from
+    the port (``matern32_f64``, ``torch.linalg``): (logpdf, the posterior
+    mean and variance at ``xs`` or None, κ ≤ λ_max/noise by power
+    iteration)."""
+    import torch
+
+    n = x.shape[0]
+    with torch.no_grad():
+        A = matern32_f64(x, x, s2, ell)
+        A.diagonal().add_(noise)
+        v = torch.ones(n, dtype=torch.float64, device=x.device)
+        for _ in range(50):
+            v = A @ v
+            v = v / v.norm()
+        kappa = float(v @ (A @ v)) * 1.01 / noise
+        L = torch.linalg.cholesky(A)
+        del A
+        z = torch.linalg.solve_triangular(L, y.double()[:, None], upper=False)[:, 0]
+        lp = -0.5 * (n * math.log(2 * math.pi) + 2 * float(torch.log(torch.diagonal(L)).sum())
+                     + float(z @ z))
+        if xs is None:
+            return lp, None, None, kappa
+        V = torch.linalg.solve_triangular(L, matern32_f64(x, xs, s2, ell), upper=False)
+        del L
+        return lp, V.T @ z, torch.clamp(s2 - (V * V).sum(0), min=0.0), kappa
+
+
+def run_tp(seed, dev, tmp, ranks):
+    """[tp logpdf], [tp pred], [tp grad]: each rank's results (``_tp_rank``)
+    against ``tp_oracle_f64`` (logpdf, mean, variance within 10·κ·eps) and
+    ``grad_oracle_f64`` (PERF.md §2's gradient rule), the same bits on both
+    ranks, the launches and collectives as predicted; the kernels against
+    their plain versions on rank 0's inputs. Then [tp 1-rank]. Returns (ok,
+    launches by run, the kernels' checks by name)."""
+    import torch
+
+    c = TP
+    x, y, xs = cg_data(seed + 50, dev)
+    nb = -(-x.shape[0] // (2 * c["block"])) * 2
+    nb_grad = -(-c["grad_n"] // (2 * c["block"])) * 2
+    ref = tp_oracle_f64(x, y, xs)
+    torch.cuda.empty_cache()
+    xg, yg, _, s2, ell = make_problem(seed, c["grad_n"], c["grad_m"], CG["d"], dev,
+                                      torch.float32)
+    g64 = grad_oracle_f64(s2, ell, xg, yg)
+    kappa_g = kappa_f64(s2, ell, xg, NOISE)
+    ok, runs = True, {}
+    same = all(ranks[0]["tp"][k]["value"] == r["tp"][k]["value"]
+               for r in ranks[1:] for k in ("logpdf", "pred", "grad"))
+    for r, res in enumerate(ranks):
+        t = res["tp"]
+        lp = torch.tensor(t["logpdf"]["value"][0][0], dtype=torch.float64)
+        mu, var = (torch.tensor(v, dtype=torch.float64, device=dev) for v in t["pred"]["value"])
+        good = check_against_oracle(f"tp logpdf, pred rank {r} N={x.shape[0]} M={xs.shape[0]}",
+                                    lp, mu, var, ref)
+        good = check_grads(f"tp grad rank {r} N={c['grad_n']}",
+                           torch.tensor(t["grad"]["value"][0], dtype=torch.float64), g64,
+                           kappa_g) and good
+        for name in ("logpdf", "pred", "grad"):
+            p = t[name]
+            launched = {k: v for k, v in p["launches"].items() if v}
+            want_coll = tp_collectives(nb_grad if name == "grad" else nb, name == "grad")
+            good_p = launched == TP_LAUNCHES[name] and p["collectives"] == want_coll
+            print(f"[tp {name}] rank {r}: launches {json.dumps(launched)} (predicted "
+                  f"{json.dumps(TP_LAUNCHES[name])}), collectives {json.dumps(p['collectives'])} "
+                  f"(predicted {json.dumps(want_coll)}), bytes sent "
+                  f"{json.dumps(p['bytes'])}; host ms: counted call {p['first_ms']:.3f}, warm "
+                  f"calls {', '.join(f'{v:.3f}' for v in p['ms'])}; "
+                  f"{'ok' if good_p else 'FAIL'}", flush=True)
+            good = good and good_p
+            runs[f"tp {name} rank {r}"] = p["launches"]
+        ok = ok and good
+    print(f"[tp] both ranks hold the same bits (logpdf, mean, variance, ∇): {same}", flush=True)
+    ok = ok and same
+    # the kernels on rank 0's own inputs
+    inputs = torch.load(os.path.join(tmp, "tp_kernel_inputs.pt"), map_location=dev,
+                        weights_only=False)
+    slab, test = inputs["logpdf"][x.shape[0]], inputs["pred"][xs.shape[0]]
+    checks = report_checks("tp", {"gram_tile slab": forward_kernel_check("gram_tile", slab),
+                                  "gram_tile test": forward_kernel_check("gram_tile", test)})
+    checks["gram_tile slab"].update(gram_tile_timing("tp slab", slab))
+    checks["gram_tile test"].update(gram_tile_timing("tp test", test))
+    with torch.no_grad():
+        bwd = gram_bwd_checks(inputs["grad"], tag="tp gram_bwd")
+    for mode, r in bwd["modes"].items():
+        checks[f"gram_bwd {mode}"] = {f: r[f] for f in ("max_abs_err", "shape", "ok",
+                                                       "device_ms", "bound_ms")}
+    ok = ok and all(r["ok"] for r in checks.values()) and set(bwd["modes"]) == {"plain",
+                                                                               "transpose"}
+    del inputs
+    torch.cuda.empty_cache()
+    one_ok, runs["tp 1-rank logpdf"] = run_tp_one_rank(seed, dev)
+    return ok and one_ok, runs, checks
+
+
+def run_tp_one_rank(seed, dev):
+    """[tp 1-rank]: ``sharded_logpdf`` on ``make_mesh(1, ("tp",))`` at
+    examples/validate_tpu.py:82-91's problem, against the dense fused
+    ``FiniteGP.logpdf`` (within ``TP_ONE_LIMIT``, the JAX check's own) and
+    f64 (10·κ·eps). Returns (ok, its launches)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import abstractgps_tpu_torch as agt
+    from abstractgps_tpu_torch.parallel import make_mesh, sharded_logpdf
+
+    c = TP
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.uniform(size=(c["one_n"], 8)), dtype=torch.float32, device=dev)
+    y = torch.as_tensor(rng.normal(size=c["one_n"]), dtype=torch.float32, device=dev)
+    kernel = make_kernel(1.0, 1.0, dev, torch.float32)
+    mesh = make_mesh(1, ("tp",))
+    with torch.no_grad():
+        reset_launches()
+        t0 = time.perf_counter()
+        lp = float(sharded_logpdf(agt.GP(kernel)(x, NOISE), y, mesh, block=c["one_block"]))
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        dense = float(agt.GP(kernel)(x, NOISE).logpdf(y))
+    dist.destroy_process_group()  # the world of one that make_mesh joined
+    lp64, _, _, kappa = tp_oracle_f64(x, y)
+    torch.cuda.empty_cache()
+    rel = abs(lp - dense) / abs(dense)
+    e64, d64 = abs(lp - lp64) / abs(lp64), abs(dense - lp64) / abs(lp64)
+    ok = (rel < TP_ONE_LIMIT and e64 <= 10.0 * kappa * EPS32
+          and {k: v for k, v in launches.items() if v} == TP_LAUNCHES["logpdf"])
+    print(f"[tp 1-rank] N={c['one_n']} D=8 f32, block {c['one_block']}: sharded logpdf {lp:.6f} "
+          f"({ms:.3f} ms, the counted call), dense fused {dense:.6f}, f64 {lp64:.6f}; relative "
+          f"to the dense {rel:.3e} (limit {TP_ONE_LIMIT:g}); to f64 {e64:.3e} (dense {d64:.3e}; "
+          f"tol 10·κ·eps {10.0 * kappa * EPS32:.3e}); launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; {'ok' if ok else 'FAIL'}",
+          flush=True)
+    return ok, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3234,6 +3467,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
 
     import torch
 
@@ -3299,12 +3533,18 @@ def main(argv=None) -> int:
     ok = ok and mk_ok
     print(f"[markov] phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- the data-parallel layer: a 2-rank world on the one card -----------
+    # ---- the parallel layer: a 2-rank world on the one card (dp, then tp) ---
     t0 = time.perf_counter()
-    dp_ok, runs_dp, checks_dp = run_dp(args.seed, dev)
+    dp_ok, runs_dp, checks_dp, world = run_dp(args.seed, dev)
     torch.cuda.empty_cache()
-    ok = ok and dp_ok
-    print(f"[dp] phases took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[dp] phases (the 2-rank world's tp phases included) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tp_ok, runs_tp, checks_tp = run_tp(args.seed, dev, *world)
+    torch.cuda.empty_cache()
+    ok = ok and dp_ok and tp_ok
+    print(f"[tp] checks and the 1-rank phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    t_main = time.perf_counter()
 
     # ---- the main path: full width, then the ragged width -----------------
     N, M, D, N_RAGGED, M_RAGGED = 8192, 4096, 8, 4500, 1024
@@ -3372,7 +3612,7 @@ def main(argv=None) -> int:
             "fit full": counts_fit, "deep grad full": counts_deep,
             "deep fit full": counts_deep_fit, "mcmc hyper": counts_hyper,
             **runs_svgp, **runs_sparse, **runs_online, **runs_cg, **runs_pw, **runs_mk,
-            **runs_dp}
+            **runs_dp, **runs_tp}
     launches = total_launches(runs)
     print(f"[launches] {json.dumps(runs)}", flush=True)
     need = {"logpdf full": ("gram_tile", "slab_factor"),
@@ -3397,6 +3637,9 @@ def main(argv=None) -> int:
             "cg grad forward": ("gram_tile",), "cg grad backward": CG_KERNELS,
             **{f"dp elbo step rank {r}": tuple(DP_STEP_LAUNCHES) for r in range(DP["world"])},
             **{f"dp nuts rank {r}": HYPER_KERNELS for r in range(DP["world"])},
+            **{f"tp {p} rank {r}": tuple(TP_LAUNCHES[p]) for p in TP_LAUNCHES
+               for r in range(DP["world"])},
+            "tp 1-rank logpdf": ("gram_tile",),
             "pathwise setup": PATHWISE_KERNELS, "pathwise eval": ("gram_tile",),
             **MARKOV_DENSE_KERNELS}
     missing = {r: [k for k in ks if runs[r][k] == 0] for r, ks in need.items()}
@@ -3500,9 +3743,11 @@ def main(argv=None) -> int:
     profile_breakdown("pred grad", pred_grad_once, top=14)
 
     path_runs = {"svgp": runs_svgp, "sparse": runs_sparse, "online": runs_online,
-                 "cg": runs_cg, "pathwise": runs_pw, "markov": runs_mk, "dp": runs_dp}
+                 "cg": runs_cg, "pathwise": runs_pw, "markov": runs_mk, "dp": runs_dp,
+                 "tp": runs_tp}
     path_checks = {"svgp": checks_svgp, "sparse": checks_sparse, "online": checks_online,
-                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk, "dp": checks_dp}
+                   "cg": checks_cg, "pathwise": checks_pw, "markov": checks_mk, "dp": checks_dp,
+                   "tp": checks_tp}
 
     def slice_paths(name):
         # each later slice's path: its launches of the kernel (by run) and its
@@ -3541,6 +3786,8 @@ def main(argv=None) -> int:
                if name in hyper_checks else {}),
             "paths": slice_paths(name),
         })
+    print(f"[main] the main path, its checks and timings took {time.perf_counter() - t_main:.1f} "
+          f"s; the whole script took {time.perf_counter() - t_script:.1f} s", flush=True)
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1

@@ -264,3 +264,11 @@ def test_two_process_workloads_from_environment(world):
     assert r0["fit_loss"] < 0.5
     np.testing.assert_allclose(r0["nuts_mean"], [0.0, 0.0, 0.0], atol=0.35)
     np.testing.assert_allclose(r0["nuts_var"], [1.0, 4.0, 0.25], rtol=0.5)
+
+
+def test_two_process_tp_sharded_logpdf(world):
+    # tests/multihost_worker.py's third workload: make_pod_mesh(("tp",)),
+    # block 8, against the dense logpdf
+    _, _, (r0, r1) = world
+    assert r0["sharded_logpdf"] == r1["sharded_logpdf"]
+    np.testing.assert_allclose(r0["sharded_logpdf"], r0["dense_logpdf"], rtol=1e-10)

@@ -1,11 +1,15 @@
-"""One rank of the gloo worlds of tests/test_torch_parallel.py.
+"""One rank of the gloo worlds of tests/test_torch_parallel.py and
+tests/test_torch_sharded_linalg.py.
 
 ``python torch_parallel_worker.py world4 RANK WORLD DIR`` joins a world
 through a file store under DIR and runs every check of the 4-rank world;
-``python torch_parallel_worker.py world2 DIR`` joins from torch's launcher
-variables (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and runs the
-multihost worker's three workloads. Inputs come from DIR/inputs.npz; each
-rank writes its numbers to DIR/<world>_rank<r>.json. Port-only: no JAX.
+``python torch_parallel_worker.py tp4 RANK WORLD DIR`` likewise runs the
+tensor-parallel linear algebra's cases; ``python torch_parallel_worker.py
+world2 DIR`` joins from torch's launcher variables (RANK, WORLD_SIZE,
+MASTER_ADDR, MASTER_PORT) and runs the multihost worker's three workloads.
+Inputs come from DIR/inputs.npz; each rank writes its numbers to
+DIR/<world>_rank<r>.json (and tp4 its arrays to DIR/tp4_rank<r>.npz).
+Port-only: no JAX.
 """
 
 import json
@@ -39,6 +43,7 @@ from abstractgps_tpu_torch.parallel import (  # noqa: E402
     replicate,
     shard_along,
 )
+from abstractgps_tpu_torch.parallel import sharded_linalg as sl  # noqa: E402
 from abstractgps_tpu_torch.parallel.data_parallel import psum  # noqa: E402
 from abstractgps_tpu_torch.parallel.multihost import num_processes, process_index  # noqa: E402
 
@@ -284,6 +289,100 @@ def world4(rank, world, d):
 
 
 # ---------------------------------------------------------------------------
+# the 4-rank tensor-parallel world: tests/test_sharded_linalg.py's cases
+# ---------------------------------------------------------------------------
+
+
+def _tp_theta(c):
+    """σ², ℓ, the constant mean and the noise of the gradient cases, as
+    caller tensors that require grad."""
+    return [torch.tensor(v, dtype=F64, requires_grad=True) for v in c]
+
+
+def _tp_fx(theta, x):
+    s2, ell, c, noise = theta
+    return agt.GP(c, s2 * agt.with_lengthscale(agt.Matern52Kernel(), ell))(x, noise)
+
+
+def tp4(rank, world, d):
+    inp = {k: torch.as_tensor(v) for k, v in np.load(os.path.join(d, "inputs.npz")).items()}
+    mesh = make_mesh(world, ("tp",))
+    group = mesh.get_group("tp")
+    arr, out = {}, {}
+    with torch.no_grad():
+        arr["chol"] = sl.distributed_cholesky(inp["chol_A"], mesh, block=64)
+        arr["chol_pad"] = sl.distributed_cholesky(inp["chol_pad_A"], mesh, block=64)
+        arr["chol_nan"] = sl.distributed_cholesky(inp["chol_nan_A"], mesh, block=16)
+        arr["gram"] = sl.sharded_gram(agt.Matern52Kernel(), inp["gram_x"], mesh)
+        for n in (512, 300):
+            f = agt.GP(0.3, 1.5 * agt.with_lengthscale(agt.SqExponentialKernel(), 0.7))
+            arr[f"lp{n}"] = sl.sharded_logpdf(f(inp[f"lp{n}_x"], 0.1), inp[f"lp{n}_y"] + 0.3,
+                                              mesh, block=64)
+        fx = agt.GP(agt.Matern32Kernel())(inp["lp_diag_x"], inp["lp_diag_sig"])
+        arr["lp_diag"] = sl.sharded_logpdf(fx, inp["lp_diag_y"], mesh, block=64)
+        fx = agt.GP(0.1, agt.Matern52Kernel())(inp["lp_mat_x"], 0.2)
+        arr["lp_mat"] = sl.sharded_logpdf(fx, inp["lp_mat_Y"], mesh, block=64)
+        fx = agt.GP(agt.Matern32Kernel())(inp["rej_x"], inp["rej_S"])
+        fx_iso = agt.GP(agt.Matern32Kernel())(inp["rej_x"], 0.1)
+        out["raises"] = [
+            _raises(lambda: sl.sharded_logpdf(fx, inp["rej_y"], mesh, block=64),
+                    NotImplementedError),
+            _raises(lambda: sl.sharded_logpdf(fx_iso, torch.zeros(65, dtype=F64), mesh,
+                                              block=64)),
+            _raises(lambda: sl.sharded_mean_and_var(fx, torch.zeros(64, dtype=F64),
+                                                    inp["rej_x"][:4], mesh),
+                    NotImplementedError)]
+        # 32 panels at block 16, and the collectives of its sweep
+        fx = agt.GP(agt.SqExponentialKernel())(inp["lp16_x"], 0.1)
+        _reset()
+        arr["lp16"] = sl.sharded_logpdf(fx, inp["lp16_y"], mesh, block=16)
+        out["lp16_counts"] = _counts()
+        out["lp16_bytes"] = dict(collectives.COLLECTIVE_BYTES)
+        fx = agt.GP(0.4, agt.Matern52Kernel())(inp["pred_x"], 0.1)
+        _reset()
+        arr["pred_mean"], arr["pred_var"] = sl.sharded_mean_and_var(
+            fx, inp["pred_y"], inp["pred_xt"], mesh, block=8)
+        out["pred_counts"] = _counts()
+        fx = agt.GP(0.4, agt.Matern52Kernel())(inp["pred_mat_x"], 0.1)
+        arr["pred_mat_mean"], arr["pred_mat_var"] = sl.sharded_mean_and_var(
+            fx, inp["pred_mat_Y"], inp["pred_mat_xt"], mesh, block=8, test_chunk=1024)
+    # the gradients in (σ², ℓ, c, noise, x, y) of the logpdf, and with x* of
+    # Σmean + Σvar, every rank seeding its own copy
+    theta = _tp_theta((1.3, 0.7, 0.2, 0.1))
+    xg, yg = inp["grad_x"].clone().requires_grad_(), inp["grad_y"].clone().requires_grad_()
+    _reset()
+    lp = sl.sharded_logpdf(_tp_fx(theta, xg), yg, mesh, block=16)
+    out["grad_fwd_counts"] = _counts()
+    _reset()
+    grads = torch.autograd.grad(lp, [*theta, xg, yg])
+    out["grad_bwd_counts"] = _counts()
+    arr["grad_value"] = lp.detach()
+    for k, g in zip(("s2", "ell", "c", "noise", "x", "y"), grads):
+        arr[f"grad_{k}"] = g
+    theta = _tp_theta((1.3, 0.7, 0.2, 0.1))
+    xg, yg = inp["gp_x"].clone().requires_grad_(), inp["gp_y"].clone().requires_grad_()
+    xt = inp["gp_xt"].clone().requires_grad_()
+    m, v = sl.sharded_mean_and_var(_tp_fx(theta, xg), yg, xt, mesh, block=8)
+    grads = torch.autograd.grad(m.sum() + v.sum(), [*theta, xg, yg, xt])
+    for k, g in zip(("s2", "ell", "c", "noise", "x", "y", "xt"), grads):
+        arr[f"gp_{k}"] = g
+    # the collectives themselves: broadcast from a chosen source, and the
+    # differentiable all_gather and broadcast_from
+    t = torch.full((3,), float(rank), dtype=F64)
+    out["broadcast_src2"] = collectives.broadcast(t, group, src=2).tolist()
+    a = torch.full((2, 2), float(rank + 1), dtype=F64, requires_grad=True)
+    w = torch.arange(float(2 * world * 2), dtype=F64).reshape(2 * world, 2) * (rank + 1)
+    (ga,) = torch.autograd.grad((collectives.all_gather(a, group) * w).sum(), a)
+    out["all_gather_grad"] = ga.tolist()
+    b = torch.full((2,), float(rank + 1), dtype=F64, requires_grad=True)
+    got = collectives.broadcast_from(b, 3, group)
+    (gb,) = torch.autograd.grad((got * (rank + 1)).sum(), b, allow_unused=True)
+    out["broadcast_from"] = [got.tolist(), None if gb is None else gb.tolist()]
+    out["arrays"] = {k: v.detach().numpy() for k, v in arr.items()}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the 2-rank world: tests/multihost_worker.py's workloads
 # ---------------------------------------------------------------------------
 
@@ -319,6 +418,11 @@ def world2(rank, world, d):
     out["nuts_mean"] = [round(float(v), 10) for v in draws.mean((0, 1))]
     out["nuts_var"] = [round(float(v), 10) for v in draws.var((0, 1), unbiased=False)]
     out["world"] = [is_distributed(), num_processes()]
+    # tp-sharded exact logpdf across processes
+    mesh_tp = make_pod_mesh(("tp",))
+    fx = agt.GP(agt.Matern52Kernel())(x, 0.1)
+    out["sharded_logpdf"] = float(sl.sharded_logpdf(fx, y, mesh_tp, block=8))
+    out["dense_logpdf"] = float(fx.logpdf(y))
     return out
 
 
@@ -327,11 +431,13 @@ def main():
     distance.set_default_device("cpu")
     torch.set_num_threads(1)
     _count_raw_collectives()
-    if which == "world4":
+    if which in ("world4", "tp4"):
         rank, world, d = int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-        initialize_distributed(f"file://{os.path.join(d, 'store4')}", world, rank,
+        initialize_distributed(f"file://{os.path.join(d, f'store_{which}')}", world, rank,
                                timeout=TIMEOUT)
-        out = world4(rank, world, d)
+        out = (world4 if which == "world4" else tp4)(rank, world, d)
+        if "arrays" in out:
+            np.savez(os.path.join(d, f"{which}_rank{rank}.npz"), **out.pop("arrays"))
     else:
         d = sys.argv[2]
         initialize_distributed(timeout=TIMEOUT)  # from RANK, WORLD_SIZE, MASTER_*
