@@ -17,6 +17,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import params as P
+from ..utils.profiling import span
 
 __all__ = ["FitResult", "fit", "fit_lbfgs", "nlml", "neg_elbo"]
 
@@ -85,17 +86,24 @@ def fit(
     """Minimise ``loss(raw_theta)`` with a first-order ``torch.optim``
     optimizer: ``optimizer(leaves)`` builds it over the tree's raw tensors
     (default ``torch.optim.Adam(leaves, lr=learning_rate)``, the update and
-    defaults of ``optax.adam``). ``history[i]`` is the loss before step i."""
+    defaults of ``optax.adam``). ``history[i]`` is the loss before step i.
+    Each step is a ``fit.step`` span (a unit of ``profiling.recording``)."""
     theta = _fresh(theta0)
     leaves = P.leaves(theta)
     opt = (optimizer or (lambda ps: torch.optim.Adam(ps, lr=learning_rate)))(leaves)
     history = _history(num_steps, leaves)
     for i in range(num_steps):
-        opt.zero_grad(set_to_none=True)
-        val = loss(theta)
-        val.backward()
-        opt.step()
-        history[i] = val.detach()
+        with span("fit.step"):
+            with span("fit.zero_grad"):
+                opt.zero_grad(set_to_none=True)
+            with span("fit.loss"):
+                val = loss(theta)
+            with span("fit.backward"):
+                val.backward()
+            with span("fit.optimizer"):
+                opt.step()
+            with span("fit.history"):
+                history[i] = val.detach()
     return FitResult(theta, history)
 
 

@@ -16,6 +16,7 @@ from ..ops import covmat
 from ..ops.distance import as_tensor
 from ..ops.noise import noise_block_diag
 from ..ops.precision import precise
+from ..utils.profiling import span
 from .finite_gp import FiniteGP
 from .gp import AbstractGP
 
@@ -71,10 +72,12 @@ class PosteriorGP(AbstractGP):
     def mean_and_var(self, x):
         # fused diagonal variant: the cross-gram K(X, x*) goes through the
         # gram kernel and the whitening solve through the wide trtri solve
-        K_Xx = self.prior.cov(self.data.x, x)
-        m = self.prior.mean(x) + K_Xx.T @ self.data.alpha
-        v = self.prior.var(x) - covmat.diag_Xt_invA_X(self.data.L, K_Xx)
-        return m, torch.clamp(v, min=0.0)
+        with span("posterior.mean_and_var"):
+            with span("model.cross_gram"):
+                K_Xx = self.prior.cov(self.data.x, x)
+            m = self.prior.mean(x) + K_Xx.T @ self.data.alpha
+            v = self.prior.var(x) - covmat.diag_Xt_invA_X(self.data.L, K_Xx)
+            return m, torch.clamp(v, min=0.0)
 
 
 @precise

@@ -20,6 +20,7 @@ from ..ops import covmat
 from ..ops.distance import as_tensor
 from ..ops.noise import Noise, as_noise
 from ..ops.precision import precise
+from ..utils.profiling import span
 from .gp import AbstractGP
 
 __all__ = [
@@ -133,16 +134,17 @@ class FiniteGP:
         gram→Cholesky sweep with the whitening solve riding it."""
         from ..ops import blocked_chol
 
-        y = as_tensor(y)
-        fused = self._fused_gram_args()
-        if fused is not None:
-            kernel, nd = fused
-            m = self.f.mean(self.x)
-            delta = y - (m if y.ndim == 1 else m[:, None])
-            return blocked_chol.gram_logpdf_core(kernel, self.x, nd, delta)
-        m, L = self._chol()
-        quad = _sqmahal(m, L, y)
-        return -0.5 * ((y.shape[0] * _LOG_2PI + covmat.logdet_from_chol(L)) + quad)
+        with span("model.logpdf"):
+            y = as_tensor(y)
+            fused = self._fused_gram_args()
+            if fused is not None:
+                kernel, nd = fused
+                m = self.f.mean(self.x)
+                delta = y - (m if y.ndim == 1 else m[:, None])
+                return blocked_chol.gram_logpdf_core(kernel, self.x, nd, delta)
+            m, L = self._chol()
+            quad = _sqmahal(m, L, y)
+            return -0.5 * ((y.shape[0] * _LOG_2PI + covmat.logdet_from_chol(L)) + quad)
 
     @precise
     def loglikelihood(self, Y) -> torch.Tensor:

@@ -47,6 +47,7 @@ from ..ops.distance import as_inputs, as_tensor
 from ..ops.noise import DenseNoise, DiagonalNoise, IsotropicNoise, as_noise
 from ..ops.precision import precise
 from ..params import inv_softplus, softplus
+from ..utils.profiling import span
 from .gp import AbstractGP
 
 __all__ = [
@@ -120,7 +121,9 @@ class SVGP(nn.Module):
 
     def _A(self, Lz, x):
         """``A = L_zz⁻¹ K(z, x)`` — (M, B) whitened cross-gram."""
-        return covmat.solve_lower(Lz, self.kernel.cross(self.z, x))
+        with span("model.cross_gram"):
+            Kzx = self.kernel.cross(self.z, x)
+        return covmat.solve_lower(Lz, Kzx)
 
     @precise
     def predict(self, x, full_cov: bool = False):
@@ -181,15 +184,16 @@ def svgp_elbo(svgp: SVGP, x, y, noise, n_total: int | None = None):
     and ``len(x) == B < n_total``, the data term is scaled by ``n_total/B``
     — the unbiased minibatch estimator (the batch must be uniformly drawn).
     """
-    x = as_inputs(x)
-    B = x.shape[0]
-    sig2 = as_noise(noise, B, like=x).diag()
-    mu, var_f = svgp.predict(x)
-    resid = as_tensor(y) - mu
-    # E_q log N(y | f, σ²) = log N(y | μ, σ²) − var_f / (2σ²)
-    ell = (-0.5 * (torch.log(2.0 * math.pi * sig2) + resid * resid / sig2)
-           - var_f / (2.0 * sig2))
-    return _scale(n_total, B) * torch.sum(ell) - svgp.kl()
+    with span("model.svgp_elbo"):
+        x = as_inputs(x)
+        B = x.shape[0]
+        sig2 = as_noise(noise, B, like=x).diag()
+        mu, var_f = svgp.predict(x)
+        resid = as_tensor(y) - mu
+        # E_q log N(y | f, σ²) = log N(y | μ, σ²) − var_f / (2σ²)
+        ell = (-0.5 * (torch.log(2.0 * math.pi * sig2) + resid * resid / sig2)
+               - var_f / (2.0 * sig2))
+        return _scale(n_total, B) * torch.sum(ell) - svgp.kl()
 
 
 def gauss_hermite_expectation(log_lik, mu, var, y, num_points: int = 20):

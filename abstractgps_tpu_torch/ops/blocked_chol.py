@@ -76,6 +76,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import LIBRARY_CALLS, span
 from . import cuda
 from .precision import full_f32
 
@@ -140,6 +141,7 @@ def should_use_wide_solve(L: torch.Tensor, B: torch.Tensor) -> bool:
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Panel GEMM at IEEE f32 whatever the precision policy (TF32 would
     corrupt the factorization)."""
+    LIBRARY_CALLS["mm"] += 1
     with full_f32():
         return a @ b
 
@@ -319,59 +321,75 @@ def tri_inv_block(L: torch.Tensor, block: int) -> torch.Tensor:
 def _sweep_slabs(npad: int, block: int, panel_fn, dtype, rhs=None):
     """The two-level sweep. Returns the factored outer slabs as a list
     ``[(r0_j, Sf_j)]`` (Sf_j is (npad − r0_j, w_j)) and, with ``rhs``
-    (npad, q), the blocks of ``Z = L⁻¹ rhs`` computed while sweeping."""
+    (npad, q), the blocks of ``Z = L⁻¹ rhs`` computed while sweeping.
+    Spans of an outer slab: ``ops.sweep.panel`` (the panel), ``.update``
+    (against the finished slabs), ``.factor`` (the diagonal block, then the
+    rows below it), ``.solve`` (the right-hand side within the slab, then
+    below it), in the order the work is launched."""
+    with span("ops.sweep"):
+        return _sweep(npad, block, panel_fn, dtype, rhs)
+
+
+def _sweep(npad: int, block: int, panel_fn, dtype, rhs):
     slabs = []
     R = None if rhs is None else rhs.clone()
     zs = []
     r0 = 0
     while r0 < npad:
         w = min(_OUTER, npad - r0)
-        S = panel_fn(r0, w)  # (npad - r0, w)
-        for b_j, Sf_j in slabs:
-            o = r0 - b_j
-            S = S - _mm(Sf_j[o:], Sf_j[o:o + w].T)
+        with span("ops.sweep.panel"):
+            S = panel_fn(r0, w)  # (npad - r0, w)
+        with span("ops.sweep.update"):
+            for b_j, Sf_j in slabs:
+                o = r0 - b_j
+                S = S - _mm(Sf_j[o:], Sf_j[o:o + w].T)
         rows = npad - r0
         Sf = S.new_zeros((rows, w), dtype=dtype)
         if _SLAB and w == _OUTER:
-            L_slab, Ws = slab_factor(S[:w].contiguous(), block)
-            Sf[:w] = L_slab
+            with span("ops.sweep.factor"):
+                L_slab, Ws = slab_factor(S[:w].contiguous(), block)
+                Sf[:w] = L_slab
             zs_slab = []
             if R is not None:
-                # blocked forward substitution within the slab, reusing the
-                # slab's diagonal-block inverses
-                for j in range(w // block):
-                    jb = j * block
-                    rj = R[r0 + jb:r0 + jb + block]
-                    if j:
-                        rj = rj - _mm(L_slab[jb:jb + block, :jb], torch.cat(zs_slab))
-                    zs_slab.append(_mm(Ws[j], rj))
-                zs.extend(zs_slab)
+                with span("ops.sweep.solve"):
+                    # blocked forward substitution within the slab, reusing
+                    # the slab's diagonal-block inverses
+                    for j in range(w // block):
+                        jb = j * block
+                        rj = R[r0 + jb:r0 + jb + block]
+                        if j:
+                            rj = rj - _mm(L_slab[jb:jb + block, :jb], torch.cat(zs_slab))
+                        zs_slab.append(_mm(Ws[j], rj))
+                    zs.extend(zs_slab)
             if rows > w:
-                for j in range(w // block):
-                    jb = j * block
-                    P = S[w:, jb:jb + block]
-                    if j:
-                        P = P - _mm(Sf[w:, :jb], L_slab[jb:jb + block, :jb].T)
-                    Sf[w:, jb:jb + block] = _mm(P, Ws[j].T)
+                with span("ops.sweep.factor"):  # the rows below the diagonal block
+                    for j in range(w // block):
+                        jb = j * block
+                        P = S[w:, jb:jb + block]
+                        if j:
+                            P = P - _mm(Sf[w:, :jb], L_slab[jb:jb + block, :jb].T)
+                        Sf[w:, jb:jb + block] = _mm(P, Ws[j].T)
             if R is not None and r0 + w < npad:
-                R[r0 + w:] -= _mm(Sf[w:], torch.cat(zs_slab))
+                with span("ops.sweep.solve"):
+                    R[r0 + w:] -= _mm(Sf[w:], torch.cat(zs_slab))
             slabs.append((r0, Sf))
             r0 += w
             continue
-        for rr in range(0, w, block):
-            P = S[rr:, rr:rr + block]
-            if rr:
-                P = P - _mm(Sf[rr:, :rr], Sf[rr:rr + block, :rr].T)
-            Lkk, W = chol_inv_block(P[:block])
-            Sf[rr:rr + block, rr:rr + block] = Lkk
-            if rr + block < rows:
-                Sf[rr + block:, rr:rr + block] = _mm(P[block:], W.T)
-            if R is not None:
-                g0 = r0 + rr
-                z_k = _mm(W, R[g0:g0 + block])  # L_kk⁻¹ · rhs panel
-                zs.append(z_k)
-                if g0 + block < npad:
-                    R[g0 + block:] -= _mm(Sf[rr + block:, rr:rr + block], z_k)
+        with span("ops.sweep.factor"):  # a ragged slab, block by block, rhs and all
+            for rr in range(0, w, block):
+                P = S[rr:, rr:rr + block]
+                if rr:
+                    P = P - _mm(Sf[rr:, :rr], Sf[rr:rr + block, :rr].T)
+                Lkk, W = chol_inv_block(P[:block])
+                Sf[rr:rr + block, rr:rr + block] = Lkk
+                if rr + block < rows:
+                    Sf[rr + block:, rr:rr + block] = _mm(P[block:], W.T)
+                if R is not None:
+                    g0 = r0 + rr
+                    z_k = _mm(W, R[g0:g0 + block])  # L_kk⁻¹ · rhs panel
+                    zs.append(z_k)
+                    if g0 + block < npad:
+                        R[g0 + block:] -= _mm(Sf[rr + block:, rr:rr + block], z_k)
         slabs.append((r0, Sf))
         r0 += w
     return slabs, zs
@@ -586,27 +604,38 @@ class _GramLogpdfCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
+        with span("ops.logpdf_backward"):
+            return _GramLogpdfCore._backward(ctx, gbar)
+
+    @staticmethod
+    def _backward(ctx, gbar):
         from ..kernels.base import hyperparameters
 
         x, noise_diag, zp, *Sfs = ctx.saved_tensors
         kernel, n = ctx.kernel, ctx.n
-        Lp = _assemble_slabs(ctx.npad, list(zip(ctx.offsets, Sfs)), torch.float32, x.device)
+        with span("ops.logpdf_backward.assemble"):
+            Lp = _assemble_slabs(ctx.npad, list(zip(ctx.offsets, Sfs)), torch.float32,
+                                 x.device)
         params = hyperparameters(kernel)
         g = (gbar.reshape(1) if ctx.vec else gbar).to(torch.float32)
-        T, W = _spd_inv_lower_and_trtri(Lp, _BLOCK)
+        with span("ops.logpdf_backward.trtri"):
+            W = _inv_lower_blocked(Lp, _BLOCK)
+        with span("ops.logpdf_backward.lauum"):
+            T = _lauum(W)
         alpha = _mm(W.T, zp)[:n]  # α = L⁻ᵀ z = (K+Σ)⁻¹ δ
         T = T[:n, :n]             # tril(K⁻¹)
         gsum = torch.sum(g)
-        fused = _try_fused_contraction(kernel, x, alpha, g, T, gsum, params)
-        if fused is not None:
-            xbar, bars, ndbar = fused
-        else:
-            # ⟨Ā, K⟩ with Ā = ½(Σ_j ḡ_j α_j α_jᵀ − ḡΣ K⁻¹) symmetric, folded
-            # onto the lower triangle (T holds only tril(K⁻¹))
-            A_low = 0.5 * (_mm(alpha * g[None, :], alpha.T) - gsum * T)
-            C = torch.tril(A_low, -1) * 2.0 + torch.diag(torch.diagonal(A_low))
-            xbar, bars = _gram_vjp(kernel, x, params, C)
-            ndbar = torch.diagonal(C).clone()
+        with span("ops.logpdf_backward.contraction"):
+            fused = _try_fused_contraction(kernel, x, alpha, g, T, gsum, params)
+            if fused is not None:
+                xbar, bars, ndbar = fused
+            else:
+                # ⟨Ā, K⟩ with Ā = ½(Σ_j ḡ_j α_j α_jᵀ − ḡΣ K⁻¹) symmetric,
+                # folded onto the lower triangle (T holds only tril(K⁻¹))
+                A_low = 0.5 * (_mm(alpha * g[None, :], alpha.T) - gsum * T)
+                C = torch.tril(A_low, -1) * 2.0 + torch.diag(torch.diagonal(A_low))
+                xbar, bars = _gram_vjp(kernel, x, params, C)
+                ndbar = torch.diagonal(C).clone()
         dbar = -(alpha * g[None, :])  # ∂/∂δ_j = −ḡ_j α_j
         dbar = dbar[:, 0] if ctx.vec else dbar
         return (None, xbar, ndbar.to(noise_diag.dtype), dbar, *_param_grads(params, bars))
@@ -789,20 +818,19 @@ def _inv_lower_blocked_rowpanel(L: torch.Tensor, block: int) -> torch.Tensor:
     return W
 
 
-def _spd_inv_lower_and_trtri(L: torch.Tensor, block: int):
-    """``(tril(K⁻¹), L⁻¹)`` for K = LLᵀ: the doubling trtri W = L⁻¹, then
-    the lauum by output tiles, T[a:a+P, b:b+P] = W[a:, a:a+P]ᵀ W[a:, b:b+P]
-    for a ≥ b (rows of W above a are zero in W's columns a:a+P), ~2N³/3
-    GEMM flops instead of the dense WᵀW. Needs N divisible by ``block``."""
-    n = L.shape[-1]
-    W = _inv_lower_blocked(L, block)
-    pw = 512 if n % 512 == 0 else block
-    T = L.new_zeros((n, n))
+def _lauum(W: torch.Tensor) -> torch.Tensor:
+    """``tril(WᵀW)`` (= tril(K⁻¹) for W = L⁻¹, K = LLᵀ) by output tiles,
+    T[a:a+P, b:b+P] = W[a:, a:a+P]ᵀ W[a:, b:b+P] for a ≥ b (rows of W above
+    a are zero in W's columns a:a+P), ~2N³/3 GEMM flops instead of the
+    dense WᵀW. Needs N divisible by ``_BLOCK``."""
+    n = W.shape[-1]
+    pw = 512 if n % 512 == 0 else _BLOCK
+    T = W.new_zeros((n, n))
     for b in range(0, n, pw):
         for a in range(b, n, pw):
             blk = _mm(W[a:, a:a + pw].T, W[a:, b:b + pw])
             T[a:a + pw, b:b + pw] = blk.tril_() if a == b else blk
-    return T, W
+    return T
 
 
 # ---------------------------------------------------------------------------
@@ -817,8 +845,10 @@ def _padded_tri(L: torch.Tensor, block: int):
 
 
 def _wide_inverse(L: torch.Tensor) -> torch.Tensor:
-    Lp, n = _padded_tri(L, _BLOCK)
-    return _inv_lower_blocked(Lp, _BLOCK)[:n, :n]
+    LIBRARY_CALLS["wide_inverse"] += 1
+    with span("ops.wide_solve.inverse"):
+        Lp, n = _padded_tri(L, _BLOCK)
+        return _inv_lower_blocked(Lp, _BLOCK)[:n, :n]
 
 
 # The adjoints (``pallas_chol.py:1222-1268``) reuse the L⁻¹ of the forward
@@ -828,8 +858,10 @@ def _wide_inverse(L: torch.Tensor) -> torch.Tensor:
 class _SolveLowerWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, B):
-        W = _wide_inverse(L)
-        X = _trmm_ll(W, B)
+        with span("ops.wide_solve"):
+            W = _wide_inverse(L)
+            with span("ops.wide_solve.trmm"):
+                X = _trmm_ll(W, B)
         ctx.save_for_backward(W, X)
         return X
 
@@ -845,8 +877,10 @@ class _SolveLowerWide(torch.autograd.Function):
 class _SolveUpperWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, B):
-        W = _wide_inverse(L)
-        X = _trmm_ul(W, B)
+        with span("ops.wide_solve"):
+            W = _wide_inverse(L)
+            with span("ops.wide_solve.trmm"):
+                X = _trmm_ul(W, B)
         ctx.save_for_backward(W, X)
         return X
 
@@ -862,8 +896,10 @@ class _SolveUpperWide(torch.autograd.Function):
 class _CholSolveWide(torch.autograd.Function):
     @staticmethod
     def forward(ctx, L, B):
-        W = _wide_inverse(L)
-        X = _trmm_ul(W, _trmm_ll(W, B))
+        with span("ops.wide_solve"):
+            W = _wide_inverse(L)
+            with span("ops.wide_solve.trmm"):
+                X = _trmm_ul(W, _trmm_ll(W, B))
         ctx.save_for_backward(L, W, X)
         return X
 

@@ -20,6 +20,8 @@ import contextlib
 
 import torch
 
+from ..utils.profiling import LIBRARY_CALLS, span
+
 __all__ = [
     "symmetrize",
     "add_jitter",
@@ -77,9 +79,11 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
     """
     from . import blocked_chol
 
-    if blocked_chol.should_use_pallas(A):
-        return blocked_chol.pallas_cholesky(A)
-    return _cholesky_nan(symmetrize(A))
+    LIBRARY_CALLS["cholesky_lower"] += 1
+    with span("ops.cholesky"):
+        if blocked_chol.should_use_pallas(A):
+            return blocked_chol.pallas_cholesky(A)
+        return _cholesky_nan(symmetrize(A))
 
 
 _WIDE_SOLVES = True  # scoped by substitution_solves(); not thread-local
@@ -100,9 +104,11 @@ def substitution_solves():
 
 
 def _tri_solve(L, B, transpose: bool):
-    if transpose:
-        return torch.linalg.solve_triangular(L.T, B, upper=True)
-    return torch.linalg.solve_triangular(L, B, upper=False)
+    LIBRARY_CALLS["tri_solve"] += 1
+    with span("ops.trsm"):
+        if transpose:
+            return torch.linalg.solve_triangular(L.T, B, upper=True)
+        return torch.linalg.solve_triangular(L, B, upper=False)
 
 
 def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

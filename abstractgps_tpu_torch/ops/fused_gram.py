@@ -60,6 +60,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda
 from .distance import safe_sqrt
 from .precision import full_f32
@@ -419,10 +420,16 @@ class _FusedGram(torch.autograd.Function):
     def forward(ctx, family, symmetric, x, z, *params):
         ctx.family, ctx.symmetric, ctx.same = family, symmetric, z is x
         ctx.save_for_backward(x, z, *params)
-        return gram_tile(x, z, family, params, symmetric)
+        with span("ops.gram"):
+            return gram_tile(x, z, family, params, symmetric)
 
     @staticmethod
     def backward(ctx, C):
+        with span("ops.gram_backward"):
+            return _FusedGram._backward(ctx, C)
+
+    @staticmethod
+    def _backward(ctx, C):
         x, z, *params = ctx.saved_tensors
         fam, sym = ctx.family, ctx.symmetric
         need_x, need_z = ctx.needs_input_grad[2:4]

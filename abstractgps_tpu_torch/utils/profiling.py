@@ -1,40 +1,197 @@
 """Tracing and roofline accounting.
 
-Counterpart of the JAX package's ``utils/profiling.py``: ``trace`` wraps
-``torch.profiler`` and writes a Chrome trace; ``timed`` measures a block's
-wall time with a device sync at its end; ``roofline`` turns a measured
-time into achieved FLOP/s and a fraction of the card's peak for the two GP
-hot ops.
+Counterpart of the JAX package's ``utils/profiling.py``, with the port's
+own spans:
+
+- ``span(name)`` marks a layer boundary of the program. Off (the default)
+  it is one flag test returning a shared object that does nothing. Inside
+  ``with recording() as rec:`` each span appends a ``Span`` to
+  ``rec.spans``: its name, start and end on ``time.time_ns()`` (the clock
+  of ``torch.profiler``'s events), its parent, its unit, and the launch,
+  collective and library-call counters at its entry and exit.
+- ``trace(logdir)`` records the spans of a block beside a
+  ``torch.profiler`` capture and writes both to one Chrome trace.
+- ``LIBRARY_CALLS`` counts the library calls of the ops layer at their
+  wrappers, as ``ops.cuda.LAUNCHES`` counts the hand-written kernels.
+- ``timed`` measures a block's wall time with a device sync at its end;
+  ``roofline`` turns a measured time into achieved FLOP/s and a fraction
+  of the card's peak.
+
+The stack of open spans is the process's, not a thread's: autograd runs
+the backward of CUDA tensors on a thread of its own while the caller
+blocks in ``backward()``, and the backward's spans belong under the
+caller's. A span named in ``UNIT_ROOTS`` that opens outside any unit
+starts a new unit (a training step, a query); every span inside it
+carries that unit's id.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
 from dataclasses import dataclass
 
 import torch
 
-__all__ = ["trace", "timed", "roofline", "Roofline", "gram_flops", "cholesky_flops",
+__all__ = ["span", "recording", "Recording", "Span", "UNIT_ROOTS", "LIBRARY_CALLS",
+           "reset_library_calls", "trace", "timed", "roofline", "Roofline", "cholesky_flops",
            "H100_PEAK_F32"]
 
 # the FP32 (non-tensor-core) peak of one H100 SXM from NVIDIA's datasheet,
 # 67 TFLOP/s: a published figure, not a measurement
 H100_PEAK_F32 = 67e12
 
+# library calls of the ops layer, counted by the wrapper that makes them:
+# ``blocked_chol._mm`` GEMMs, ``covmat._tri_solve`` TRSMs,
+# ``covmat.cholesky_lower`` factors, ``blocked_chol._wide_inverse`` trtris
+LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0}
+
+UNIT_ROOTS = ("fit.step", "posterior.mean_and_var")
+
+
+def reset_library_calls() -> None:
+    for name in LIBRARY_CALLS:
+        LIBRARY_CALLS[name] = 0
+
+
+class Span:
+    """One recorded span. ``parent`` and ``unit`` are -1 where there is
+    none; ``counts`` is what the counters added while it was open."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "unit", "_names", "_at_entry",
+                 "_at_exit")
+
+    def __init__(self, name, start_ns, parent, unit, names, at_entry):
+        self.name, self.start_ns, self.end_ns = name, start_ns, start_ns
+        self.parent, self.unit = parent, unit
+        self._names, self._at_entry, self._at_exit = names, at_entry, at_entry
+
+    @property
+    def counts(self) -> dict:
+        return {k: b - a for k, a, b in zip(self._names, self._at_entry, self._at_exit)
+                if b != a}
+
+
+class Recording:
+    """The spans of one ``recording()`` block, in the order they opened;
+    ``counter_names`` names the counters a span's ``counts`` holds."""
+
+    def __init__(self, counter_names: tuple):
+        self.counter_names = counter_names
+        self.spans: list[Span] = []
+        self.units = 0
+
+
+_ON = False
+_REC: Recording | None = None
+_STACK: list[int] = []  # indices of the open spans in _REC.spans
+_COUNTERS: tuple = ()   # the counter dicts a span snapshots
+
+
+def _snapshot() -> tuple:
+    a, b, c = _COUNTERS
+    return (*a.values(), *b.values(), *c.values())
+
+
+_OFF = contextlib.nullcontext()  # what ``span`` returns while nothing records
+
+
+class _On:
+    __slots__ = ("name", "rec", "index")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        rec = self.rec = _REC
+        parent = _STACK[-1] if _STACK else -1
+        unit = rec.spans[parent].unit if parent >= 0 else -1
+        if unit < 0 and self.name in UNIT_ROOTS:
+            unit, rec.units = rec.units, rec.units + 1
+        self.index = len(rec.spans)
+        rec.spans.append(Span(self.name, time.time_ns(), parent, unit, rec.counter_names,
+                              _snapshot()))
+        _STACK.append(self.index)
+        return None
+
+    def __exit__(self, *exc):
+        sp = self.rec.spans[self.index]
+        sp.end_ns = time.time_ns()
+        sp._at_exit = _snapshot()
+        if _STACK and _STACK[-1] == self.index:
+            _STACK.pop()
+        elif self.index in _STACK:
+            _STACK.remove(self.index)
+        return False
+
+
+def span(name: str):
+    """``with span("ops.sweep"): ...`` records the block while a
+    ``recording()`` is open, and does nothing otherwise."""
+    if not _ON:
+        return _OFF
+    return _On(name)
+
+
+@contextlib.contextmanager
+def recording():
+    """``with recording() as rec:`` turns the spans on for the block;
+    ``rec.spans`` holds them after it. Not reentrant."""
+    global _ON, _REC, _COUNTERS
+    if _ON:
+        raise RuntimeError("profiling.recording() is already open")
+    from ..ops import cuda
+    from ..parallel import collectives
+
+    _COUNTERS = (cuda.LAUNCHES, collectives.COLLECTIVES, LIBRARY_CALLS)
+    names = tuple(f"{kind}.{k}" for kind, d in zip(("launch", "collective", "library"),
+                                                      _COUNTERS) for k in d)
+    rec = Recording(names)
+    _STACK.clear()
+    _REC, _ON = rec, True
+    try:
+        yield rec
+    finally:
+        _ON, _REC = False, None
+        _STACK.clear()
+
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """``with trace("prof"): ...`` → ``prof/trace.json``, a Chrome trace of
-    the block (CPU ops, and the card's kernels when CUDA is available)."""
+    the block: CPU ops, the card's kernels when CUDA is available, and the
+    program's spans (category ``program_span``, one row of their own) on
+    the same clock."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with recording() as rec, torch.profiler.profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, rec)
+
+
+def _add_spans(path: str, rec: Recording) -> None:
+    """Append ``rec``'s spans to the Chrome trace at ``path`` as complete
+    events, in µs from the trace's ``baseTimeNanoseconds``."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), 1  # a row of their own (real thread ids are larger)
+    doc["traceEvents"].append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                               "args": {"name": "program spans"}})
+    for i, sp in enumerate(rec.spans):
+        args = {"index": i, "parent": sp.parent, "unit": sp.unit, **sp.counts}
+        doc["traceEvents"].append({"ph": "X", "cat": "program_span", "name": sp.name,
+                                   "pid": pid, "tid": tid,
+                                   "ts": (sp.start_ns - base) / 1e3,
+                                   "dur": (sp.end_ns - sp.start_ns) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 @contextlib.contextmanager
@@ -46,12 +203,6 @@ def timed(out: dict, key: str = "seconds"):
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
     out[key] = time.perf_counter() - t0
-
-
-def gram_flops(n: int, m: int, d: int) -> float:
-    """FLOPs of an (n×m) gram tile over d dims: the 2·n·m·d distance
-    contraction dominates (the elementwise map is O(n·m))."""
-    return 2.0 * n * m * d
 
 
 def cholesky_flops(n: int) -> float:

@@ -764,3 +764,42 @@ def test_markov_cuda_tensors_in_give_cuda_tensors_out(cuda, gen):
                 markov.markov_rand(fx, y, xq, 0, parallel=parallel)]
         for o in outs:
             assert o.device.type == "cuda" and o.dtype == torch.float32, (o.device, o.dtype)
+
+
+def test_spans_on_the_card_hold_the_backward_thread_and_the_launches(cuda, gen):
+    # autograd runs the backward of card tensors on a thread of its own: its
+    # spans still hang under fit.backward; a recorded step counts the
+    # launches an unrecorded step makes; a wide query, one inverse of L
+    import abstractgps_tpu_torch.params as P
+    from abstractgps_tpu_torch.utils import profiling
+
+    x = torch.as_tensor(gen.uniform(size=(2048, 8)), dtype=torch.float32, device=cuda)
+    y = torch.sin(x).sum(1)
+
+    def build(th, xx):
+        k = th["s2"] * agt.with_lengthscale(agt.Matern32Kernel(), th["ell"])
+        return agt.GP(k)(xx, th["noise"])
+
+    theta = {k: P.positive(torch.tensor(v, device=cuda))
+             for k, v in dict(s2=1.0, ell=1.0, noise=0.1).items()}
+    loss = agt.nlml(build, x, y)
+    before = dict(cuda_ops.LAUNCHES)
+    agt.fit(loss, theta, num_steps=1)
+    torch.cuda.synchronize()
+    off = {k: v - before[k] for k, v in cuda_ops.LAUNCHES.items() if v != before[k]}
+    with profiling.recording() as rec:
+        agt.fit(loss, theta, num_steps=1)
+        torch.cuda.synchronize()
+    spans = rec.spans
+    (step,) = [s for s in spans if s.name == "fit.step"]
+    assert {k[len("launch."):]: v for k, v in step.counts.items()
+            if k.startswith("launch.")} == off and off
+    bwd = next(i for i, s in enumerate(spans) if s.name == "fit.backward")
+    lb = next(s for s in spans if s.name == "ops.logpdf_backward")
+    assert lb.parent == bwd and lb.unit == step.unit == 0
+    post = agt.posterior(build({k: P.constrain(v) for k, v in theta.items()}, x), y)
+    with profiling.recording() as rec, torch.no_grad():
+        post.mean_and_var(x[:300])
+        post.mean_and_var(x[:100])
+    roots = [s for s in rec.spans if s.name == "posterior.mean_and_var"]
+    assert [s.counts.get("library.wide_inverse", 0) for s in roots] == [1, 0]
