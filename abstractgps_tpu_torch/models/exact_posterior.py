@@ -4,6 +4,11 @@ Reference: src/exact_gpr_posterior.jl:1-91. ``posterior(fx, y)`` caches
 ``(α = C⁻¹δ, L = chol(K + Σy), x, δ = y − m)``; conditioning a posterior on
 new data extends the cached Cholesky with ``update_chol`` instead of
 refactorising. The posterior is itself an AbstractGP.
+
+On the kernel path (``covmat.can_hold_inverse``) the posterior also keeps
+``W = L⁻¹``, formed by the first predictive that whitens and freed with the
+posterior: every later ``V = L⁻¹ K(X, x*)`` is one product with W instead
+of a solve, at any number of test points.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..ops import covmat
+from ..ops import blocked_chol, covmat
 from ..ops.distance import as_tensor
 from ..ops.noise import noise_block_diag
 from ..ops.precision import precise
@@ -38,6 +43,21 @@ class PosteriorGP(AbstractGP):
     def __init__(self, prior: AbstractGP, data: _ExactCache):
         self.prior = prior
         self.data = data
+        self._W = None  # L⁻¹, formed by the first whitening that may hold it
+
+    def _whiten(self, K_Xx):
+        """``L⁻¹ K(X, x*)``: where ``covmat.can_hold_inverse(L)``, one
+        product with the held W (one trtri on the first call); elsewhere the
+        solve of ``covmat.solve_lower``, with its exact adjoint into L."""
+        L = self.data.L
+        if not covmat.can_hold_inverse(L):
+            return covmat.solve_lower(L, K_Xx)
+        if self._W is None:
+            # a tensor with no graph whatever mode the first call runs in (a
+            # later call may differentiate through W in x*)
+            with torch.inference_mode(False), torch.no_grad():
+                self._W = blocked_chol._wide_inverse(L)
+        return blocked_chol.whiten_held(self._W, K_Xx)
 
     @precise
     def mean(self, x):
@@ -46,37 +66,35 @@ class PosteriorGP(AbstractGP):
 
     @precise
     def cov(self, x, z=None):
-        K_Xx = self.prior.cov(self.data.x, x)
+        # K** − V'V with V = L⁻¹ K(X, x*) (the reference's Xt_invA_X, Xt_invA_Y)
+        V = self._whiten(self.prior.cov(self.data.x, x))
         if z is None:
-            # K** − Xt_invA_X(C, K(X, x*))
-            return self.prior.cov(x) - covmat.Xt_invA_X(self.data.L, K_Xx)
-        K_Xz = self.prior.cov(self.data.x, z)
-        return self.prior.cov(x, z) - covmat.Xt_invA_Y(K_Xx, self.data.L, K_Xz)
+            return self.prior.cov(x) - covmat.symmetrize(V.T @ V)
+        return self.prior.cov(x, z) - V.T @ self._whiten(self.prior.cov(self.data.x, z))
 
     @precise
     def var(self, x):
         # diagonal only; clamped at 0 against f32 cancellation
-        K_Xx = self.prior.cov(self.data.x, x)
-        v = self.prior.var(x) - covmat.diag_Xt_invA_X(self.data.L, K_Xx)
-        return torch.clamp(v, min=0.0)
+        V = self._whiten(self.prior.cov(self.data.x, x))
+        return torch.clamp(self.prior.var(x) - covmat.diag_At_A(V), min=0.0)
 
     @precise
     def mean_and_cov(self, x):
         # one cross-gram shared between mean and cov
         K_Xx = self.prior.cov(self.data.x, x)
         m = self.prior.mean(x) + K_Xx.T @ self.data.alpha
-        C = self.prior.cov(x) - covmat.Xt_invA_X(self.data.L, K_Xx)
-        return m, C
+        V = self._whiten(K_Xx)
+        return m, self.prior.cov(x) - covmat.symmetrize(V.T @ V)
 
     @precise
     def mean_and_var(self, x):
         # fused diagonal variant: the cross-gram K(X, x*) goes through the
-        # gram kernel and the whitening solve through the wide trtri solve
+        # gram kernel, its whitening through the held L⁻¹ (``_whiten``)
         with span("posterior.mean_and_var"):
             with span("model.cross_gram"):
                 K_Xx = self.prior.cov(self.data.x, x)
             m = self.prior.mean(x) + K_Xx.T @ self.data.alpha
-            v = self.prior.var(x) - covmat.diag_Xt_invA_X(self.data.L, K_Xx)
+            v = self.prior.var(x) - covmat.diag_At_A(self._whiten(K_Xx))
             return m, torch.clamp(v, min=0.0)
 
 

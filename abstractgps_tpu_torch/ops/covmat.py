@@ -29,6 +29,7 @@ __all__ = [
     "substitution_solves",
     "solve_lower",
     "solve_upper",
+    "can_hold_inverse",
     "chol_solve",
     "logdet_from_chol",
     "update_chol",
@@ -115,8 +116,9 @@ def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``L X = B`` for lower-triangular L (reference ``U' \\ B``).
 
     Fat right-hand sides on the card route to the trtri+GEMM path
-    (``blocked_chol.solve_lower_wide`` — the posterior-prediction
-    whitening solve). Explicit-inverse-then-multiply is not backward
+    (``blocked_chol.solve_lower_wide``), which inverts L on every call; the
+    exact posterior, whose L is fixed, keeps that inverse instead
+    (``can_hold_inverse``). Explicit-inverse-then-multiply is not backward
     stable; for noisy grams κ(L) stays small and the extra f32 error is
     ≲ 1e-4 relative. Wrap jitter-only factors in ``substitution_solves()``.
     """
@@ -143,6 +145,16 @@ def solve_upper(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     else:
         X = _tri_solve(L, Bm, transpose=True)
     return X[:, 0] if b_vec else X
+
+
+def can_hold_inverse(L: torch.Tensor) -> bool:
+    """Whether a caller may keep ``W = L⁻¹`` of a fixed factor and whiten
+    by products with it (``blocked_chol.whiten_held``) in place of
+    ``solve_lower``: ``blocked_chol.should_hold_inverse(L)``, outside
+    ``substitution_solves()``."""
+    from . import blocked_chol
+
+    return _WIDE_SOLVES and blocked_chol.should_hold_inverse(L)
 
 
 def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -45,8 +45,10 @@ H100_PEAK_F32 = 67e12
 
 # library calls of the ops layer, counted by the wrapper that makes them:
 # ``blocked_chol._mm`` GEMMs, ``covmat._tri_solve`` TRSMs,
-# ``covmat.cholesky_lower`` factors, ``blocked_chol._wide_inverse`` trtris
-LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0}
+# ``covmat.cholesky_lower`` factors, ``blocked_chol._wide_inverse`` trtris,
+# ``blocked_chol.whiten_held`` products with a held inverse
+LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0,
+                 "whiten_cached": 0}
 
 UNIT_ROOTS = ("fit.step", "posterior.mean_and_var")
 

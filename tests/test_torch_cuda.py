@@ -300,6 +300,46 @@ def test_slice_on_the_card_matches_f64(cuda, gen):
     assert float(var.detach().min()) >= 0.0
 
 
+@pytest.mark.parametrize("q", [1, 255, 256, 4097])
+def test_the_held_inverse_on_the_card_matches_f64(cuda, gen, q):
+    # N = 2048: the doubling trtri (one batched tri_inv_block) forms W = L⁻¹
+    # on the posterior's first query; the next query, thin or wide, is one
+    # product with W and launches no kernel of the inverse. Limits as in the
+    # slice test above
+    from abstractgps_tpu_torch.utils import profiling
+
+    n, noise = 2048, 0.1
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
+    xs = torch.as_tensor(gen.uniform(size=(q, 8)), dtype=torch.float32, device=cuda)
+    k = (1.1 * agt.with_lengthscale(agt.Matern32Kernel(), 0.9)).to(device=cuda,
+                                                                   dtype=torch.float32)
+    with torch.no_grad():
+        post = agt.posterior(agt.GP(k)(x, noise), y)
+        _launched("tri_inv_block", lambda: post.mean_and_var(xs[:1]))
+        before = dict(cuda_ops.LAUNCHES), dict(profiling.LIBRARY_CALLS)
+        mu, var = post.mean_and_var(xs)
+        torch.cuda.synchronize()
+    assert cuda_ops.LAUNCHES["tri_inv_block"] == before[0]["tri_inv_block"]
+    assert profiling.LIBRARY_CALLS["wide_inverse"] == before[1]["wide_inverse"]
+    assert profiling.LIBRARY_CALLS["whiten_cached"] == before[1]["whiten_cached"] + 1
+    assert profiling.LIBRARY_CALLS["tri_solve"] == before[1]["tri_solve"]
+
+    k64 = k.to(torch.float64)
+    with torch.no_grad():
+        K = agt.kernelmatrix(k64, x.double()) + noise * torch.eye(n, dtype=torch.float64,
+                                                                  device=cuda)
+        L = torch.linalg.cholesky(K)
+        Ks = agt.kernelmatrix(k64, x.double(), xs.double())
+        mu64 = Ks.T @ torch.cholesky_solve(y.double()[:, None], L)[:, 0]
+        V = torch.linalg.solve_triangular(L, Ks, upper=False)
+        var64 = torch.clamp(agt.kernelmatrix_diag(k64, xs.double()) - (V * V).sum(0), min=0)
+    tol = 10.0 * (n * 1.1 + noise) / noise * EPS32
+    _close(mu.double(), mu64, rel=tol)
+    _close(var.double(), var64, rel=tol)
+    assert float(var.min()) >= 0.0
+
+
 # ---------------------------------------------------------------------------
 # The backward kernels: gram_bwd (the gram VJP) and logpdf_contraction
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@
   in order, nested in time; each unit of the three benchmark paths (an
   exact step, an SVGP step, a query), reached through the kernel paths in
   interpret mode, stays within its budget of spans.
-- The wide solve counts one triangular inverse a query from q = 256 on.
+- A posterior forms one triangular inverse, on its first query whatever q;
+  every later query whitens by one product with it.
 - The spans share ``torch.profiler``'s clock, and ``trace`` writes them
   into its Chrome trace.
 - A span opened in another thread while its opener blocks (autograd's
@@ -153,8 +154,8 @@ def test_spans_a_unit_stay_within_budget(kernel_paths, path):
         with profiling.recording() as rec:
             _query(post, 300)
             _query(post, 40)
-        needed = {"posterior.mean_and_var", "model.cross_gram", "ops.gram", "ops.wide_solve",
-                  "ops.wide_solve.inverse", "ops.wide_solve.trmm", "ops.trsm"}
+        needed = {"posterior.mean_and_var", "model.cross_gram", "ops.gram", "ops.whiten",
+                  "ops.wide_solve.inverse"}
         units = 2
     else:
         with profiling.recording() as rec:
@@ -177,6 +178,9 @@ def test_spans_a_unit_stay_within_budget(kernel_paths, path):
 
 @pytest.mark.parametrize("q", [1, 255, 256, 700])
 def test_the_wide_solve_counts_one_inverse_a_query_from_q_256(monkeypatch, q):
+    # the posterior holds L⁻¹: its first query forms the one inverse (thin
+    # or wide, on either side of _WIDE_RHS), each later query whitens by one
+    # product with it and counts no inverse and no substitution
     monkeypatch.setattr(blocked_chol, "_INTERPRET", True)
     monkeypatch.setattr(blocked_chol, "_MIN_N", 256)
     monkeypatch.setattr(blocked_chol, "_BLOCK", 32)
@@ -184,14 +188,18 @@ def test_the_wide_solve_counts_one_inverse_a_query_from_q_256(monkeypatch, q):
     post = _posterior(256)
     profiling.reset_library_calls()
     _query(post, q)
-    added = profiling.LIBRARY_CALLS["wide_inverse"]
-    assert added == (1 if q >= 256 else 0)
-    assert profiling.LIBRARY_CALLS["tri_solve"] == 1 - added
+    assert {k: profiling.LIBRARY_CALLS[k] for k in ("wide_inverse", "tri_solve",
+                                                    "whiten_cached")} == {
+        "wide_inverse": 1, "tri_solve": 0, "whiten_cached": 1}
     with profiling.recording() as rec:
         _query(post, q)
-    (root,) = [s for s in rec.spans if s.name == "posterior.mean_and_var"]
-    assert root.counts.get("library.wide_inverse", 0) == added
-    assert (root.counts.get("library.tri_solve", 0) == 0) == (q >= 256)
+        _query(post, q)
+    roots = [s for s in rec.spans if s.name == "posterior.mean_and_var"]
+    assert len(roots) == 2
+    for root in roots:
+        assert root.counts.get("library.wide_inverse", 0) == 0
+        assert root.counts.get("library.tri_solve", 0) == 0
+        assert root.counts["library.whiten_cached"] == 1
 
 
 def test_spans_share_the_profilers_clock_and_trace_writes_them(tmp_path):
