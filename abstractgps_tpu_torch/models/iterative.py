@@ -20,6 +20,15 @@ Lanczos quadrature (Dong et al. 2017, arXiv:1711.03481):
   panel's VJP is ``gram_bwd`` (plain for the panel's rows, transposed for
   the columns).
 
+Spans (``utils.profiling``): ``model.cg_logpdf`` around ``cg_logpdf``;
+``ops.cg.precond`` around the pivoted Cholesky, the Woodbury sampler and
+solver; ``ops.cg.solve`` around one ``mbcg``, ``ops.cg.matvec`` around each
+of its steps' matvec (not each panel); ``ops.cg.slq`` around the
+quadrature; ``ops.cg_backward`` around a backward's panel contraction.
+``LIBRARY_CALLS["cg_matvec"]`` counts the solver's matvecs and, while a
+``recording()`` is open, ``"cg_converged_matvec"`` those run after every
+column of the batch had frozen.
+
 The CG iterations record no autograd graph. ``cg_logpdf`` is differentiable
 through its own backward, and so are the CG posterior's predictions: every
 solve X = A⁻¹B is ``_CGSolve``, whose backward is implicit (one more mBCG
@@ -43,6 +52,7 @@ from ..ops.matvec import _pad_rows, make_gram_matvec
 from ..ops.noise import DenseNoise
 from ..ops.pivchol import pivoted_cholesky, woodbury_preconditioner
 from ..ops.precision import full_f32, precise
+from ..utils.profiling import LIBRARY_CALLS, is_recording, span
 from .gp import GP, AbstractGP
 
 __all__ = [
@@ -76,34 +86,40 @@ def mbcg(matvec, B: torch.Tensor, *, max_iters: int, tol: float | None = None,
 
     Returns ``(X, (alphas, betas, actives))``, the coefficients (max_iters, q).
     """
-    psolve = precond if precond is not None else (lambda v: v)
-    if tol is None:
-        tol = torch.finfo(B.dtype).eps ** 0.5
-    rs0 = torch.sum(B * B, dim=0)
-    Z0 = psolve(B)
-    rz = torch.sum(B * Z0, dim=0)
-    X, R, P, active = torch.zeros_like(B), B, Z0, rs0 > 0
-    thresh = (tol * tol) * rs0
-    zero, one = B.new_zeros(()), B.new_ones(())
-    alphas, betas, actives = [], [], []
-    for _ in range(max_iters):
-        KP = matvec(P)
-        pKp = torch.sum(P * KP, dim=0)
-        active = active & (pKp > 0)  # breakdown → freeze, α/β = 0
-        alpha = torch.where(active, rz / torch.where(pKp > 0, pKp, one), zero)
-        X = X + alpha[None, :] * P
-        R = R - alpha[None, :] * KP
-        Z = psolve(R)
-        rz_new = torch.sum(R * Z, dim=0)
-        rs_new = torch.sum(R * R, dim=0)
-        beta = torch.where(active, rz_new / torch.where(rz != 0, rz, one), zero)
-        P = torch.where(active[None, :], Z + beta[None, :] * P, P)
-        alphas.append(alpha)
-        betas.append(beta)
-        actives.append(active)
-        rz = rz_new
-        active = active & (rs_new > thresh)
-    return X, (torch.stack(alphas), torch.stack(betas), torch.stack(actives))
+    with span("ops.cg.solve"):
+        psolve = precond if precond is not None else (lambda v: v)
+        if tol is None:
+            tol = torch.finfo(B.dtype).eps ** 0.5
+        rs0 = torch.sum(B * B, dim=0)
+        Z0 = psolve(B)
+        rz = torch.sum(B * Z0, dim=0)
+        X, R, P, active = torch.zeros_like(B), B, Z0, rs0 > 0
+        thresh = (tol * tol) * rs0
+        zero, one = B.new_zeros(()), B.new_ones(())
+        alphas, betas, actives = [], [], []
+        for _ in range(max_iters):
+            LIBRARY_CALLS["cg_matvec"] += 1
+            with span("ops.cg.matvec"):
+                KP = matvec(P)
+            pKp = torch.sum(P * KP, dim=0)
+            active = active & (pKp > 0)  # breakdown → freeze, α/β = 0
+            alpha = torch.where(active, rz / torch.where(pKp > 0, pKp, one), zero)
+            X = X + alpha[None, :] * P
+            R = R - alpha[None, :] * KP
+            Z = psolve(R)
+            rz_new = torch.sum(R * Z, dim=0)
+            rs_new = torch.sum(R * R, dim=0)
+            beta = torch.where(active, rz_new / torch.where(rz != 0, rz, one), zero)
+            P = torch.where(active[None, :], Z + beta[None, :] * P, P)
+            alphas.append(alpha)
+            betas.append(beta)
+            actives.append(active)
+            rz = rz_new
+            active = active & (rs_new > thresh)
+        actives = torch.stack(actives)
+        if is_recording():  # a host read: the steps in which no column was active
+            LIBRARY_CALLS["cg_converged_matvec"] += int((~actives.any(dim=1)).sum())
+    return X, (torch.stack(alphas), torch.stack(betas), actives)
 
 
 def _lanczos_tridiag(alphas, betas, actives):
@@ -126,11 +142,12 @@ def slq_logdet(alphas, betas, actives, norms2) -> torch.Tensor:
     """Stochastic Lanczos quadrature estimate of ``logdet(A)``:
     ``mean_i ‖z_i‖² · e₁ᵀ log(T_i) e₁`` (Dong et al. 2017), the T_i from
     the CG recurrence."""
-    T = _lanczos_tridiag(alphas, betas, actives)
-    w, V = torch.linalg.eigh(T)
-    w = torch.clamp(w, min=torch.finfo(T.dtype).tiny)  # PD in exact arithmetic
-    e1 = V[:, 0, :]  # first component of each eigenvector, (q, t)
-    return torch.mean(torch.sum(e1 * e1 * torch.log(w), dim=-1) * norms2)
+    with span("ops.cg.slq"):
+        T = _lanczos_tridiag(alphas, betas, actives)
+        w, V = torch.linalg.eigh(T)
+        w = torch.clamp(w, min=torch.finfo(T.dtype).tiny)  # PD in exact arithmetic
+        e1 = V[:, 0, :]  # first component of each eigenvector, (q, t)
+        return torch.mean(torch.sum(e1 * e1 * torch.log(w), dim=-1) * norms2)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +166,8 @@ def _contract_gram_vjp(kernel, x, params, Lft, Rgt, *, panel: int, need_x: bool)
     xbar, bars = None, [None] * len(wanted)
     if not (need_x or wanted):
         return xbar, {}
-    with torch.enable_grad(), leaf_hyperparameters(kernel) as alias, full_f32():
+    with span("ops.cg_backward"), torch.enable_grad(), leaf_hyperparameters(kernel) as alias, \
+            full_f32():
         x_ = as_inputs(x).detach().requires_grad_(need_x)
         wrt = ([x_] if need_x else []) + [alias.get(id(p), p) for p in wanted]
         xp = _pad_rows(x_, panel)
@@ -172,9 +190,10 @@ def _make_precond(kernel, x, noise_diag, rank: int, Lk=None):
     caller already built it."""
     if rank <= 0:
         return None, noise_diag.new_zeros(())
-    if Lk is None:
-        Lk = pivoted_cholesky(kernel, x, rank)
-    solve, logdet_P, _ = woodbury_preconditioner(Lk, noise_diag)
+    with span("ops.cg.precond"):
+        if Lk is None:
+            Lk = pivoted_cholesky(kernel, x, rank)
+        solve, logdet_P, _ = woodbury_preconditioner(Lk, noise_diag)
     return solve, logdet_P
 
 
@@ -253,7 +272,8 @@ class _CGSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kernel, x, noise_diag, B, Lk, opts, *params):
         if Lk is None and opts[4] > 0:
-            Lk = pivoted_cholesky(kernel, x, opts[4])  # built once, for the backward too
+            with span("ops.cg.precond"):  # built once, for the backward too
+                Lk = pivoted_cholesky(kernel, x, opts[4])
         X = _cg_solve(kernel, x, noise_diag, B, Lk, opts)
         ctx.kernel, ctx.opts, ctx.Lk = kernel, opts, Lk
         ctx.save_for_backward(x, noise_diag, X)
@@ -305,25 +325,27 @@ def cg_logpdf(fx, y, draws=None, *, num_probes: int = 32, max_iters: int = 256,
     scalar or (n, q) → (q,) column-wise. Differentiable in the kernel's
     hyperparameters, x, the noise and y.
     """
-    kernel, nd = _require_kernel_prior(fx)
-    y = as_tensor(y)
-    draws = as_draws(draws, fx.x.device)
-    m = fx.f.mean(fx.x)
-    delta = y - (m if y.ndim == 1 else m[:, None])
-    n = fx.x.shape[0]
-    with torch.no_grad():
-        if precond_rank > 0:
-            Lk = pivoted_cholesky(kernel, fx.x, precond_rank)
-            _, _, sample = woodbury_preconditioner(Lk, nd.detach())
-            probes = sample(draws, num_probes).to(delta.dtype)
-        else:
-            Lk = delta.new_zeros((n, 0))
-            probes = draws.rademacher((n, num_probes), delta.dtype, delta.device)
-    if tol is None:
-        tol = torch.finfo(delta.dtype).eps ** 0.5
-    opts = (max_iters, tol, panel, max_dense_n, precond_rank)
-    return _CGLogpdf.apply(kernel, fx.x, nd, delta, probes, Lk, opts,
-                           *hyperparameters(kernel))
+    with span("model.cg_logpdf"):
+        kernel, nd = _require_kernel_prior(fx)
+        y = as_tensor(y)
+        draws = as_draws(draws, fx.x.device)
+        m = fx.f.mean(fx.x)
+        delta = y - (m if y.ndim == 1 else m[:, None])
+        n = fx.x.shape[0]
+        with torch.no_grad():
+            if precond_rank > 0:
+                with span("ops.cg.precond"):
+                    Lk = pivoted_cholesky(kernel, fx.x, precond_rank)
+                    _, _, sample = woodbury_preconditioner(Lk, nd.detach())
+                    probes = sample(draws, num_probes).to(delta.dtype)
+            else:
+                Lk = delta.new_zeros((n, 0))
+                probes = draws.rademacher((n, num_probes), delta.dtype, delta.device)
+        if tol is None:
+            tol = torch.finfo(delta.dtype).eps ** 0.5
+        opts = (max_iters, tol, panel, max_dense_n, precond_rank)
+        return _CGLogpdf.apply(kernel, fx.x, nd, delta, probes, Lk, opts,
+                               *hyperparameters(kernel))
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +439,7 @@ class CGInference:
         delta = as_tensor(y) - fx.f.mean(fx.x)
         Lk = None
         if self.precond_rank > 0:
-            with torch.no_grad():
+            with torch.no_grad(), span("ops.cg.precond"):
                 Lk = pivoted_cholesky(kernel, fx.x, self.precond_rank)
         opts = (self.max_iters, self.tol, self.panel, self.max_dense_n, self.precond_rank)
         X = _CGSolve.apply(kernel, fx.x, nd, delta[:, None], Lk, opts, *hyperparameters(kernel))

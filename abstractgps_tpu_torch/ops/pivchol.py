@@ -15,7 +15,7 @@ import torch
 from .blocked_chol import _peel_transforms
 from .draws import as_draws
 
-__all__ = ["pivoted_cholesky", "woodbury_preconditioner"]
+__all__ = ["pivoted_cholesky", "pivoted_cholesky_with_pivots", "woodbury_preconditioner"]
 
 
 def pivoted_cholesky(kernel, x, rank: int) -> torch.Tensor:
@@ -25,13 +25,23 @@ def pivoted_cholesky(kernel, x, rank: int) -> torch.Tensor:
     ``argmax`` picks it); a step whose pivot has no residual left records a
     zero column (exact rank < k).
     """
+    return pivoted_cholesky_with_pivots(kernel, x, rank)[0]
+
+
+def pivoted_cholesky_with_pivots(kernel, x, rank: int):
+    """``(L, pivots)``: ``pivoted_cholesky``'s factor and the row it pivoted
+    on at each step, (rank,) int64 on the device. The pivot order fixes the
+    factor; another precision can pick others where the residual diagonal
+    has near ties."""
     kernel, xt = _peel_transforms(kernel, x)
     n = xt.shape[0]
     d = kernel.diag(xt)
     L = xt.new_zeros((n, rank))
+    pivots = []
     tiny = torch.finfo(d.dtype).tiny
     for i in range(rank):
         piv = torch.argmax(d).reshape(1)
+        pivots.append(piv)
         col = kernel.cross(xt, xt.index_select(0, piv))[:, 0]  # (n,)
         col = col - L @ L.index_select(0, piv)[0]  # columns ≥ i are still zero
         dpiv = d.index_select(0, piv)[0]
@@ -39,7 +49,7 @@ def pivoted_cholesky(kernel, x, rank: int) -> torch.Tensor:
         l = torch.where(dpiv > 0, l, torch.zeros_like(l))
         d = torch.clamp(d - l * l, min=0.0)
         L[:, i] = l
-    return L
+    return L, (torch.cat(pivots) if pivots else xt.new_zeros(0, dtype=torch.long))
 
 
 def woodbury_preconditioner(Lk: torch.Tensor, noise_diag: torch.Tensor):

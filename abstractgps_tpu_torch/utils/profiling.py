@@ -12,7 +12,8 @@ own spans:
 - ``trace(logdir)`` records the spans of a block beside a
   ``torch.profiler`` capture and writes both to one Chrome trace.
 - ``LIBRARY_CALLS`` counts the library calls of the ops layer at their
-  wrappers, as ``ops.cuda.LAUNCHES`` counts the hand-written kernels.
+  wrappers, as ``ops.cuda.LAUNCHES`` counts the hand-written kernels, and
+  the CG solver's matvecs.
 - ``timed`` measures a block's wall time with a device sync at its end;
   ``roofline`` turns a measured time into achieved FLOP/s and a fraction
   of the card's peak.
@@ -35,9 +36,9 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["span", "recording", "Recording", "Span", "UNIT_ROOTS", "LIBRARY_CALLS",
-           "reset_library_calls", "trace", "timed", "roofline", "Roofline", "cholesky_flops",
-           "H100_PEAK_F32"]
+__all__ = ["span", "recording", "is_recording", "Recording", "Span", "UNIT_ROOTS",
+           "LIBRARY_CALLS", "reset_library_calls", "trace", "timed", "roofline", "Roofline",
+           "cholesky_flops", "H100_PEAK_F32"]
 
 # the FP32 (non-tensor-core) peak of one H100 SXM from NVIDIA's datasheet,
 # 67 TFLOP/s: a published figure, not a measurement
@@ -46,9 +47,12 @@ H100_PEAK_F32 = 67e12
 # library calls of the ops layer, counted by the wrapper that makes them:
 # ``blocked_chol._mm`` GEMMs, ``covmat._tri_solve`` TRSMs,
 # ``covmat.cholesky_lower`` factors, ``blocked_chol._wide_inverse`` trtris,
-# ``blocked_chol.whiten_held`` products with a held inverse
+# ``blocked_chol.whiten_held`` products with a held inverse; the matvecs of
+# ``iterative.mbcg``, and of those the ones run after every column of the
+# batch had frozen (counted only while a ``recording()`` is open: it takes a
+# host read of the solver's state)
 LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0,
-                 "whiten_cached": 0}
+                 "whiten_cached": 0, "cg_matvec": 0, "cg_converged_matvec": 0}
 
 UNIT_ROOTS = ("fit.step", "posterior.mean_and_var")
 
@@ -135,6 +139,11 @@ def span(name: str):
     if not _ON:
         return _OFF
     return _On(name)
+
+
+def is_recording() -> bool:
+    """Whether a ``recording()`` block is open."""
+    return _ON
 
 
 @contextlib.contextmanager

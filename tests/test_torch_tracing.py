@@ -12,6 +12,10 @@
   into its Chrome trace.
 - A span opened in another thread while its opener blocks (autograd's
   device thread) gets the opener's span as its parent.
+- A CG step's spans nest as named, one ``ops.cg.matvec`` a solver step;
+  ``library.cg_matvec`` counts every matvec and
+  ``library.cg_converged_matvec``, only while recording, those after every
+  column had frozen.
 """
 
 import json
@@ -254,3 +258,92 @@ def test_recording_is_not_reentrant_and_ends_clean():
             with profiling.span("fit.step"):
                 raise ValueError
     assert not profiling._ON and not profiling._STACK
+
+
+CG_SMALL = dict(num_probes=8, max_iters=40, panel=64, max_dense_n=0, precond_rank=16)
+
+
+def _cg_fit(steps=1, n=200):
+    x, y = _data(n, seed=3)
+    theta = {k: P.positive(torch.tensor(v)) for k, v in dict(s2=1.0, ell=0.5, noise=0.1).items()}
+    inf = agt.CGInference(**CG_SMALL)
+
+    def loss(raw):
+        return -agt.approx_log_evidence(inf, _build(P.constrain(raw), x), y)
+
+    return agt.fit(loss, theta, num_steps=steps)
+
+
+def _inside(spans, i, name):
+    """Whether span ``i`` lies inside an open span called ``name``."""
+    j = spans[i].parent
+    while j >= 0:
+        if spans[j].name == name:
+            return True
+        j = spans[j].parent
+    return False
+
+
+def test_the_cg_spans_nest_as_named():
+    with profiling.recording() as rec:
+        _cg_fit()
+    spans = rec.spans
+    names = Counter(s.name for s in spans)
+    assert names["model.cg_logpdf"] == 1 and names["ops.cg.solve"] == 1
+    assert names["ops.cg.slq"] == 1 and names["ops.cg_backward"] == 1
+    assert names["ops.cg.matvec"] == CG_SMALL["max_iters"]  # one a step, not one a panel
+    assert names["ops.cg.precond"] == 2  # the factor and sampler; the Woodbury solver
+    for i, s in enumerate(spans):
+        if s.name == "model.cg_logpdf":
+            assert spans[s.parent].name == "fit.loss"
+        if s.name in ("ops.cg.precond", "ops.cg.solve", "ops.cg.slq"):
+            assert _inside(spans, i, "model.cg_logpdf")
+        if s.name == "ops.cg.matvec":
+            assert spans[s.parent].name == "ops.cg.solve"
+        if s.name == "ops.cg_backward":
+            assert _inside(spans, i, "fit.backward")
+    # the CG posterior's solves (``_CGSolve``) are solver spans too
+    x, y = _data(200, seed=3)
+    th = {"s2": torch.tensor(1.0), "ell": torch.tensor(0.5), "noise": torch.tensor(0.1)}
+    with torch.no_grad():
+        post = agt.posterior(agt.CGInference(**CG_SMALL), _build(th, x), y)
+        with profiling.recording() as rec:
+            post.mean_and_var(torch.rand((5, 3), generator=torch.Generator().manual_seed(4)))
+    names = Counter(s.name for s in rec.spans)
+    assert names["ops.cg.solve"] == 1 and names["ops.cg.matvec"] == CG_SMALL["max_iters"]
+
+
+def test_the_cg_counters_count_matvecs_and_those_after_convergence(monkeypatch):
+    from abstractgps_tpu_torch.models import iterative
+
+    seen, mbcg = [], iterative.mbcg
+
+    def kept(*args, **kwargs):
+        out = mbcg(*args, **kwargs)
+        seen.append(out[1][2])
+        return out
+
+    monkeypatch.setattr(iterative, "mbcg", kept)
+    for on in (False, True):
+        seen.clear()
+        profiling.reset_library_calls()
+        if on:
+            with profiling.recording():
+                _cg_fit(2)
+        else:
+            _cg_fit(2)
+        calls = dict(profiling.LIBRARY_CALLS)
+        assert len(seen) == 2
+        assert calls["cg_matvec"] == 2 * CG_SMALL["max_iters"]
+        idle = sum(CG_SMALL["max_iters"] - int(a.any(dim=1).sum()) for a in seen)
+        assert calls["cg_converged_matvec"] == (idle if on else 0)
+    assert idle > 0  # at these sizes every column converges within 40 steps
+
+
+def test_a_cg_step_records_no_span_while_nothing_records(monkeypatch):
+    def opened(name):
+        raise AssertionError(f"span {name!r} recorded with no recording open")
+
+    monkeypatch.setattr(profiling, "_On", opened)
+    _cg_fit()
+    assert profiling._REC is None and not profiling._STACK
