@@ -9,8 +9,10 @@ Lanczos quadrature (Dong et al. 2017, arXiv:1711.03481):
   (``ops.matvec.gram_matvec``; on the card each panel is one ``gram_tile``
   launch), so memory stays O(panel·N);
 - the solver is batched (mBCG): the data solve and all probe solves share
-  every matvec, and it runs exactly ``max_iters`` steps, with no host read
-  inside the loop;
+  every matvec, and it stops once every column has frozen (``max_iters`` is
+  a cap, as in GPyTorch's ``linear_cg``); on the card it learns that from
+  a flag copied to pinned host memory behind an event it polls, so the loop
+  makes no blocking host read;
 - ``logdet(K+Σ)`` comes from the Lanczos tridiagonals that the CG
   coefficients give for free, via batched ``eigh`` of t×t matrices;
 - the gradient is the BBMM rank-(q+p) cotangent
@@ -25,9 +27,10 @@ Spans (``utils.profiling``): ``model.cg_logpdf`` around ``cg_logpdf``;
 solver; ``ops.cg.solve`` around one ``mbcg``, ``ops.cg.matvec`` around each
 of its steps' matvec (not each panel); ``ops.cg.slq`` around the
 quadrature; ``ops.cg_backward`` around a backward's panel contraction.
-``LIBRARY_CALLS["cg_matvec"]`` counts the solver's matvecs and, while a
-``recording()`` is open, ``"cg_converged_matvec"`` those run after every
-column of the batch had frozen.
+``LIBRARY_CALLS["cg_matvec"]`` counts the solver's matvecs,
+``"cg_skipped_matvec"`` the steps under ``max_iters`` it did not run, and,
+while a ``recording()`` is open, ``"cg_converged_matvec"`` the steps it ran
+with no column of the batch active (the exit's lag on the card).
 
 The CG iterations record no autograd graph. ``cg_logpdf`` is differentiable
 through its own backward, and so are the CG posterior's predictions: every
@@ -71,6 +74,40 @@ _LOG_2PI = math.log(2.0 * math.pi)
 # ---------------------------------------------------------------------------
 
 
+class _FrozenWatch:
+    """Whether a finished solver step left every column frozen, learnt
+    without blocking. On the card each posted mask's ``any()`` is copied to
+    a pinned host slot behind an event, and ``frozen()`` reads only the
+    slots whose events have completed; the steps launched meanwhile are the
+    no-ops the fixed-trip loop would have run. Elsewhere it reads the flag
+    at once."""
+
+    def __init__(self, active: torch.Tensor, steps: int):
+        self.done, self.posted, self.pending = False, 0, []
+        self.flags = None
+        if active.is_cuda:
+            self.flags = torch.empty(steps + 1, dtype=torch.bool, pin_memory=True)
+            self.seen = self.flags.numpy()
+            self.stream = torch.cuda.current_stream(active.device)
+        self.post(active)
+
+    def post(self, active: torch.Tensor) -> None:
+        if self.flags is None:
+            self.done = not bool(active.any())
+            return
+        self.flags[self.posted].copy_(active.any(), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(self.stream)
+        self.pending.append((self.posted, event))
+        self.posted += 1
+
+    def frozen(self) -> bool:
+        while not self.done and self.pending and self.pending[0][1].query():
+            slot, _ = self.pending.pop(0)
+            self.done = not self.seen[slot]
+        return self.done
+
+
 @torch.no_grad()
 def mbcg(matvec, B: torch.Tensor, *, max_iters: int, tol: float | None = None,
          precond=None):
@@ -78,11 +115,15 @@ def mbcg(matvec, B: torch.Tensor, *, max_iters: int, tol: float | None = None,
 
     ``matvec(V)`` applies the SPD operator to an (n, q) block; ``precond``
     (optional) applies ``P⁻¹`` (the recorded recurrence then tridiagonalises
-    ``P^{-1/2} A P^{-1/2}``). Runs exactly ``max_iters`` steps; a column
-    whose residual falls to ``tol`` (relative, default ``sqrt(eps)`` of B's
-    dtype) is frozen, and so is one that breaks down (``pKp ≤ 0``): its
-    later steps record α = β = 0, so the Lanczos tridiagonal decouples into
-    [T_active ⊕ I] exactly.
+    ``P^{-1/2} A P^{-1/2}``). A column whose residual falls to ``tol``
+    (relative, default ``sqrt(eps)`` of B's dtype) is frozen, and so is one
+    that breaks down (``pKp ≤ 0``): its later steps record α = β = 0, so the
+    Lanczos tridiagonal decouples into [T_active ⊕ I] exactly. Once every
+    column has frozen the later steps change nothing, so the loop stops
+    there (on the card a step or a few later, ``_FrozenWatch``) and at
+    ``max_iters`` steps at most; the coefficients of the steps not run are
+    those steps' α = β = 0, inactive, so every output is the fixed-trip
+    loop's.
 
     Returns ``(X, (alphas, betas, actives))``, the coefficients (max_iters, q).
     """
@@ -97,7 +138,10 @@ def mbcg(matvec, B: torch.Tensor, *, max_iters: int, tol: float | None = None,
         thresh = (tol * tol) * rs0
         zero, one = B.new_zeros(()), B.new_ones(())
         alphas, betas, actives = [], [], []
+        watch = _FrozenWatch(active, max_iters)
         for _ in range(max_iters):
+            if watch.frozen():
+                break
             LIBRARY_CALLS["cg_matvec"] += 1
             with span("ops.cg.matvec"):
                 KP = matvec(P)
@@ -116,10 +160,17 @@ def mbcg(matvec, B: torch.Tensor, *, max_iters: int, tol: float | None = None,
             actives.append(active)
             rz = rz_new
             active = active & (rs_new > thresh)
-        actives = torch.stack(actives)
-        if is_recording():  # a host read: the steps in which no column was active
-            LIBRARY_CALLS["cg_converged_matvec"] += int((~actives.any(dim=1)).sum())
-    return X, (torch.stack(alphas), torch.stack(betas), actives)
+            watch.post(active)
+        ran = len(alphas)
+        LIBRARY_CALLS["cg_skipped_matvec"] += max_iters - ran
+        if ran and is_recording():  # a host read: the steps run with no column active
+            LIBRARY_CALLS["cg_converged_matvec"] += int(
+                (~torch.stack(actives).any(dim=1)).sum())
+        nil = B.new_zeros(B.shape[1])
+        alphas += [nil] * (max_iters - ran)
+        betas += [nil] * (max_iters - ran)
+        actives += [nil.bool()] * (max_iters - ran)
+    return X, (torch.stack(alphas), torch.stack(betas), torch.stack(actives))
 
 
 def _lanczos_tridiag(alphas, betas, actives):

@@ -48,11 +48,13 @@ H100_PEAK_F32 = 67e12
 # ``blocked_chol._mm`` GEMMs, ``covmat._tri_solve`` TRSMs,
 # ``covmat.cholesky_lower`` factors, ``blocked_chol._wide_inverse`` trtris,
 # ``blocked_chol.whiten_held`` products with a held inverse; the matvecs of
-# ``iterative.mbcg``, and of those the ones run after every column of the
-# batch had frozen (counted only while a ``recording()`` is open: it takes a
-# host read of the solver's state)
+# ``iterative.mbcg``, the steps under its ``max_iters`` that it skipped once
+# every column had frozen, and the steps it ran with no column active, the
+# exit's lag (counted only while a ``recording()`` is open: it takes a host
+# read of the solver's state)
 LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0,
-                 "whiten_cached": 0, "cg_matvec": 0, "cg_converged_matvec": 0}
+                 "whiten_cached": 0, "cg_matvec": 0, "cg_skipped_matvec": 0,
+                 "cg_converged_matvec": 0}
 
 UNIT_ROOTS = ("fit.step", "posterior.mean_and_var")
 

@@ -25,6 +25,7 @@ import torch
 
 import abstractgps_tpu_torch as agt
 from abstractgps_tpu_torch.ops import blocked_chol, cuda as cuda_ops, fused_gram, precision
+from abstractgps_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -306,8 +307,6 @@ def test_the_held_inverse_on_the_card_matches_f64(cuda, gen, q):
     # on the posterior's first query; the next query, thin or wide, is one
     # product with W and launches no kernel of the inverse. Limits as in the
     # slice test above
-    from abstractgps_tpu_torch.utils import profiling
-
     n, noise = 2048, 0.1
     x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
     y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
@@ -710,7 +709,7 @@ class _ReplayNormals:
 
 def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
     # the preconditioned CG logpdf at N = 3000 in 1024-row panels: every CG
-    # step launches one gram_tile a panel, the backward rebuilds each panel
+    # step run launches one gram_tile a panel, the backward rebuilds each panel
     # once more and takes its VJP through gram_bwd, plain (the panel's rows)
     # and transposed (the columns). Value and gradient against the same
     # estimator (the same probes) in f64 on the card, within 10·κ·eps with
@@ -732,15 +731,59 @@ def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
         return torch.cat([lp.detach()[None], *[g[None] for g in torch.autograd.grad(lp, th)]])
 
     cuda_ops.reset_launches()
+    ran = profiling.LIBRARY_CALLS["cg_matvec"]
     got = value_and_grad(torch.float32)
     torch.cuda.synchronize()
-    assert cuda_ops.LAUNCHES["gram_tile"] == panels * (iters + 1), cuda_ops.LAUNCHES
+    ran = profiling.LIBRARY_CALLS["cg_matvec"] - ran  # the solver's steps run, ≤ iters
+    assert 0 < ran <= iters
+    assert cuda_ops.LAUNCHES["gram_tile"] == panels * (ran + 1), cuda_ops.LAUNCHES
     assert sorted(modes) == ["plain"] * panels + ["transpose"] * panels
     draws.replay()
     want = value_and_grad(torch.float64)
     assert torch.isfinite(got).all()
     tol = 10.0 * (n * 1.1 + 0.1) / 0.1 * EPS32
     assert float(((got.double() - want).abs() / want.abs()).max()) <= tol
+
+
+def test_cg_solver_stops_on_the_card_with_the_fixed_trip_loops_bits(cuda, gen):
+    # the event-polled exit of mbcg at N = 3000 in 1024-row panels with a
+    # rank-16 preconditioner: X and the coefficient stacks bit for bit the
+    # fixed-trip loop's on the same card; at most a few steps run after
+    # every column froze (those launched before the host saw the flag), the
+    # rest of the 256 skipped. The loop itself, over a dense matvec, runs
+    # under CUDA's sync debug mode set to raise: no blocking host read
+    from cg_fixed_trip import assert_bitwise, fixed_trip_mbcg
+
+    from abstractgps_tpu_torch.models import iterative
+
+    n, iters = 3000, 256
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    y = torch.as_tensor(gen.normal(size=n), dtype=torch.float32, device=cuda)
+    th = [torch.tensor(v, dtype=torch.float32, device=cuda) for v in (1.1, 0.9)]
+    k = th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1])
+    nd = torch.full((n,), 0.1, dtype=torch.float32, device=cuda)
+    probes = torch.randn((n, 8), generator=torch.Generator(device=cuda).manual_seed(5),
+                         dtype=torch.float32, device=cuda)
+    B = torch.cat([y[:, None], probes], dim=1)
+    mv = iterative.make_gram_matvec(k, x, nd, panel=1024, max_dense_n=1024)
+    psolve, _ = iterative._make_precond(k, x, nd, 16)
+    before = dict(profiling.LIBRARY_CALLS)
+    with profiling.recording():
+        got = iterative.mbcg(mv, B, max_iters=iters, precond=psolve)
+    calls = {name: v - before[name] for name, v in profiling.LIBRARY_CALLS.items()}
+    assert_bitwise(got, fixed_trip_mbcg(mv, B, max_iters=iters, precond=psolve))
+    assert calls["cg_matvec"] + calls["cg_skipped_matvec"] == iters, calls
+    assert calls["cg_skipped_matvec"] > 0 and calls["cg_converged_matvec"] <= 8, calls
+
+    A = agt.kernelmatrix(k, x) + torch.diag(nd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dense = iterative.mbcg(lambda V: A @ V, B, max_iters=iters, precond=psolve)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert_bitwise(dense, fixed_trip_mbcg(lambda V: A @ V, B, max_iters=iters, precond=psolve))
+    assert not dense[1][2][-1].any()
 
 
 def _markov_problem(gen, n, cuda):
