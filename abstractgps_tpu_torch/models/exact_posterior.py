@@ -5,10 +5,10 @@ Reference: src/exact_gpr_posterior.jl:1-91. ``posterior(fx, y)`` caches
 new data extends the cached Cholesky with ``update_chol`` instead of
 refactorising. The posterior is itself an AbstractGP.
 
-On the kernel path (``covmat.can_hold_inverse``) the posterior also keeps
-``W = L⁻¹``, formed by the first predictive that whitens and freed with the
-posterior: every later ``V = L⁻¹ K(X, x*)`` is one product with W instead
-of a solve, at any number of test points.
+The posterior whitens through a ``covmat.Whitener`` of its L: on the kernel
+path it keeps ``W = L⁻¹``, formed by the first predictive that whitens and
+freed with the posterior, and every later ``V = L⁻¹ K(X, x*)`` is one
+product with W instead of a solve, at any number of test points.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ..ops import blocked_chol, covmat
+from ..ops import covmat
 from ..ops.distance import as_tensor
 from ..ops.noise import noise_block_diag
 from ..ops.precision import precise
@@ -43,21 +43,7 @@ class PosteriorGP(AbstractGP):
     def __init__(self, prior: AbstractGP, data: _ExactCache):
         self.prior = prior
         self.data = data
-        self._W = None  # L⁻¹, formed by the first whitening that may hold it
-
-    def _whiten(self, K_Xx):
-        """``L⁻¹ K(X, x*)``: where ``covmat.can_hold_inverse(L)``, one
-        product with the held W (one trtri on the first call); elsewhere the
-        solve of ``covmat.solve_lower``, with its exact adjoint into L."""
-        L = self.data.L
-        if not covmat.can_hold_inverse(L):
-            return covmat.solve_lower(L, K_Xx)
-        if self._W is None:
-            # a tensor with no graph whatever mode the first call runs in (a
-            # later call may differentiate through W in x*)
-            with torch.inference_mode(False), torch.no_grad():
-                self._W = blocked_chol._wide_inverse(L)
-        return blocked_chol.whiten_held(self._W, K_Xx)
+        self._whiten = covmat.Whitener(data.L)  # B ↦ L⁻¹ B
 
     @precise
     def mean(self, x):
@@ -89,7 +75,7 @@ class PosteriorGP(AbstractGP):
     @precise
     def mean_and_var(self, x):
         # fused diagonal variant: the cross-gram K(X, x*) goes through the
-        # gram kernel, its whitening through the held L⁻¹ (``_whiten``)
+        # gram kernel, its whitening through the held L⁻¹ (``covmat.Whitener``)
         with span("posterior.mean_and_var"):
             with span("model.cross_gram"):
                 K_Xx = self.prior.cov(self.data.x, x)

@@ -9,10 +9,11 @@ ragged tail slab goes block by block through ``chol_inv_block``), and the
 rows below are solved against the block inverses with GEMMs. The gram
 panels can be BUILT inside the sweep (``cholesky_gram``), so K never
 exists in device memory, and the whitening solve of the logpdf rides the
-sweep (``gram_logpdf_core``). The wide solves are trtri + TRMM: a doubling
-triangular inverse whose diagonal blocks come from ``tri_inv_block``. A
-caller whose factor stays fixed (the exact posterior) keeps that inverse
-and whitens each right-hand side by one product with it (``whiten_held``).
+sweep (``gram_logpdf_core``). One triangular inverse, ``lower_inverse``
+(its diagonal blocks from one batched ``tri_inv_block`` launch), serves the
+logpdf backward, the wide solves (trtri + TRMM) and ``covmat.Whitener``,
+which keeps it for a fixed factor; ``tri_mm`` is the one rule for
+multiplying by it.
 
 The four hand-written kernels of this module (``csrc/``) each have a plain
 torch version beside them: a CUDA tensor launches the kernel, a CPU tensor
@@ -63,8 +64,8 @@ Backward passes (``torch.autograd.Function``s, the JAX package's
   isotropic base kernel under a Scale/Transform chain the contraction is
   the kernel ``fused_gram.logpdf_contraction``, other kernels go through
   autograd of ⟨C, K⟩.
-- the three wide solves: the triangular-solve adjoints over the L⁻¹ that
-  their forward computed.
+- the wide solves (one Function, three modes): the triangular-solve
+  adjoints over the L⁻¹ that their forward computed.
 
 Each backward takes the kernel's hyperparameter tensors
 (``kernels.base.hyperparameters``) as inputs, so gradients reach the
@@ -87,10 +88,9 @@ _ENABLED = True     # False: every tensor takes the library path (torch.linalg)
 _MIN_N = 1024       # below this torch.linalg is already fine
 _BLOCK = 128        # diagonal block width
 _OUTER = 1024       # outer slab width of the two-level sweep
-_SLAB = True        # full-width slabs go through slab_factor
 _WIDE_RHS = 256     # the trtri amortizes over this many RHS columns
-_TRMM_SPLIT = 2048  # split dense x triangular products at/above this size
-_HELD_TRMM_RHS = 512  # from here a held L⁻¹ multiplies by the split TRMM, below by one GEMM
+_TRMM_SPLIT = 2048  # split triangular products from this many rows ...
+_TRMM_RHS = 512     # ... and this many right-hand-side columns; below, one GEMM
 
 
 def set_enabled(flag: bool) -> None:
@@ -112,7 +112,9 @@ def _on_kernel_path(t: torch.Tensor) -> bool:
 
 
 def should_use_pallas(A: torch.Tensor) -> bool:
-    """Gate for ``pallas_cholesky``: f32 on the card, N ≥ _MIN_N."""
+    """Gate for the blocked kernels on one matrix: f32 on the card,
+    N ≥ _MIN_N. ``covmat`` reads it for ``pallas_cholesky`` and, outside
+    ``substitution_solves()``, for ``lower_inverse`` of a factor."""
     if not _on_kernel_path(A):
         return False
     if A.ndim != 2 or A.dtype != torch.float32:
@@ -127,30 +129,6 @@ def should_use_fused_gram(x: torch.Tensor, noise_diag: torch.Tensor) -> bool:
     if x.dtype != torch.float32 or noise_diag.dtype != torch.float32:
         return False
     return x.shape[0] >= _MIN_N
-
-
-def should_use_wide_solve(L: torch.Tensor, B: torch.Tensor) -> bool:
-    """Gate for the trtri+GEMM solves: f32 on the card, large N, FAT rhs
-    (q ≥ _WIDE_RHS; a thin RHS keeps substitution, where the trtri cost
-    dominates)."""
-    if not _on_kernel_path(L):
-        return False
-    if L.ndim != 2 or L.dtype != torch.float32 or B.dtype != torch.float32:
-        return False
-    q = 1 if B.ndim == 1 else B.shape[-1]
-    return L.shape[-1] >= _MIN_N and q >= _WIDE_RHS
-
-
-def should_hold_inverse(L: torch.Tensor) -> bool:
-    """Gate for a caller that keeps ``W = L⁻¹`` of a fixed factor and
-    whitens by ``whiten_held``: f32 on the card, N ≥ _MIN_N, and no
-    gradient flowing into L (W carries no adjoint back to L). Once W is
-    paid for, a product with it beats substitution at every q."""
-    if not _on_kernel_path(L):
-        return False
-    if L.ndim != 2 or L.dtype != torch.float32 or L.shape[-1] < _MIN_N:
-        return False
-    return not (torch.is_grad_enabled() and L.requires_grad)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -360,7 +338,7 @@ def _sweep(npad: int, block: int, panel_fn, dtype, rhs):
                 S = S - _mm(Sf_j[o:], Sf_j[o:o + w].T)
         rows = npad - r0
         Sf = S.new_zeros((rows, w), dtype=dtype)
-        if _SLAB and w == _OUTER:
+        if w == _OUTER:
             with span("ops.sweep.factor"):
                 L_slab, Ws = slab_factor(S[:w].contiguous(), block)
                 Sf[:w] = L_slab
@@ -634,7 +612,7 @@ class _GramLogpdfCore(torch.autograd.Function):
         params = hyperparameters(kernel)
         g = (gbar.reshape(1) if ctx.vec else gbar).to(torch.float32)
         with span("ops.logpdf_backward.trtri"):
-            W = _inv_lower_blocked(Lp, _BLOCK)
+            W = lower_inverse(Lp)
         with span("ops.logpdf_backward.lauum"):
             T = _lauum(W)
         alpha = _mm(W.T, zp)[:n]  # α = L⁻ᵀ z = (K+Σ)⁻¹ δ
@@ -728,64 +706,65 @@ def _logpdf_from_chol(L, delta):
 
 
 # ---------------------------------------------------------------------------
-# Triangular inverse by doubling merges (trtri)
+# The triangular inverse (trtri) and the products with it
 # ---------------------------------------------------------------------------
 
 
-def _inv_lower(L: torch.Tensor) -> torch.Tensor:
-    """Inverse of (a batch of) small lower-triangular blocks by
-    substitution (the non-kernel path: f64 oracles, CPU)."""
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand(L.shape)
-    return torch.linalg.solve_triangular(L, eye, upper=False)
-
-
-def _pallas_diag_inv(Lii: torch.Tensor) -> torch.Tensor:
-    """Inverse of one diagonal block: ``tri_inv_block`` on the kernel path,
-    substitution otherwise."""
-    if _on_kernel_path(Lii) and Lii.dtype == torch.float32:
-        return tri_inv_block(Lii, Lii.shape[0])[0]
-    return _inv_lower(Lii)
-
-
 def _batched_diag_inv(L: torch.Tensor, block: int) -> torch.Tensor:
-    """(nb, B, B) inverses of L's diagonal blocks — ONE batched launch on
-    the kernel path."""
+    """(nb, B, B) inverses of L's diagonal blocks: ONE batched
+    ``tri_inv_block`` launch on the kernel path, a batched substitution
+    otherwise (f64 oracles, CPU)."""
     if _on_kernel_path(L) and L.dtype == torch.float32:
         return tri_inv_block(L, block)
     nb = L.shape[-1] // block
-    return _inv_lower(torch.stack([
-        L[i * block:(i + 1) * block, i * block:(i + 1) * block] for i in range(nb)]))
+    blocks = torch.stack([L[i * block:(i + 1) * block, i * block:(i + 1) * block]
+                          for i in range(nb)])
+    eye = torch.eye(block, dtype=L.dtype, device=L.device).expand(blocks.shape)
+    return torch.linalg.solve_triangular(blocks, eye, upper=False)
 
 
-def _inv_lower_blocked(L: torch.Tensor, block: int) -> torch.Tensor:
-    """``W = L⁻¹`` (lower) by doubling merges
-    ``W = [[W11, 0], [−W22·L21·W11, W22]]`` over the batched diagonal-block
-    inverses. Needs n a power-of-two multiple of ``block``; other
-    multiples take the row-panel scheme."""
+def lower_inverse(L: torch.Tensor) -> torch.Tensor:
+    """``W = L⁻¹`` of a lower-triangular L (lower triangle read): the
+    logpdf backward's trtri, the wide solves' and ``covmat.Whitener``'s.
+
+    L is padded with an identity corner to a multiple of ``_BLOCK``, and its
+    diagonal blocks invert in one batched launch. A power-of-two block count
+    then merges by doubling, ``W = [[W11, 0], [−W22·L21·W11, W22]]``: few
+    large products, and strided traffic Σ_levels 3N·s against the row
+    panels' Σ r0² ≈ N³/(3B). Any other count goes by row panels,
+    ``W[i, :i] = −W_ii·L[i, :i]·W[:i, :i]``. Opens no span and counts
+    nothing; its callers do."""
     n = L.shape[-1]
-    nb = n // block
-    if nb & (nb - 1):
-        return _inv_lower_blocked_rowpanel(L, block)
-    Winv = _batched_diag_inv(L, block)
-    W = L.new_zeros((n, n))
+    pad = (-n) % _BLOCK
+    if pad:
+        L = _pad_identity(L, pad)
+    npad, b = n + pad, _BLOCK
+    nb = npad // b
+    Winv = _batched_diag_inv(L, b)
+    W = L.new_zeros((npad, npad))
     for i in range(nb):
-        W[i * block:(i + 1) * block, i * block:(i + 1) * block] = Winv[i]
-    s = block
-    while s < n:
-        for base in range(0, n, 2 * s):
+        W[i * b:(i + 1) * b, i * b:(i + 1) * b] = Winv[i]
+    if nb & (nb - 1):
+        for i in range(1, nb):
+            r0 = i * b
+            W[r0:r0 + b, :r0] = _mm(Winv[i], -_mm(L[r0:r0 + b, :r0], W[:r0, :r0]))
+        return W[:n, :n]
+    s = b
+    while s < npad:
+        for base in range(0, npad, 2 * s):
             W11 = W[base:base + s, base:base + s]
             W22 = W[base + s:base + 2 * s, base + s:base + 2 * s]
             L21 = L[base + s:base + 2 * s, base:base + s]
-            W[base + s:base + 2 * s, base:base + s] = -_trmm_ll(W22, _trmm_lr(L21, W11))
+            W[base + s:base + 2 * s, base:base + s] = -tri_mm(W22, _trmm_lr(L21, W11))
         s *= 2
-    return W
+    return W[:n, :n]
 
 
 def _trmm_lr(X, Wtri):
-    """``X @ Wtri`` with Wtri LOWER-triangular: one split level drops the
-    zero upper-right quarter (3 half-GEMMs instead of 4)."""
+    """``X @ Wtri`` with Wtri lower-triangular, the merges' right product,
+    split as ``tri_mm`` splits (X has as many rows as Wtri)."""
     s = Wtri.shape[0]
-    if s < _TRMM_SPLIT:
+    if s < _TRMM_SPLIT or X.shape[0] < _TRMM_RHS:
         return _mm(X, Wtri)
     h = s // 2
     A, C, D = Wtri[:h, :h], Wtri[h:, :h], Wtri[h:, h:]
@@ -794,43 +773,26 @@ def _trmm_lr(X, Wtri):
     return torch.cat([left, right], dim=1)
 
 
-def _trmm_ll(Wtri, X):
-    """``Wtri @ X`` with Wtri LOWER-triangular (same split)."""
-    s = Wtri.shape[0]
-    if s < _TRMM_SPLIT:
-        return _mm(Wtri, X)
+def tri_mm(W: torch.Tensor, B: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """``W B``, or ``Wᵀ B`` with ``transpose``, for a lower-triangular W: the
+    one rule for multiplying by ``lower_inverse``'s W. From ``_TRMM_SPLIT``
+    rows and ``_TRMM_RHS`` columns of B it splits W in quarters and skips
+    the zero one (3 half-products for 4); below either, one GEMM on the
+    whole W. The split launches ~30 products at N = 8192: on an H100 the
+    GEMM took 0.10 ms at q = 1 against 0.99, 1.03 against 1.22 at q = 384,
+    and 1.34 against 1.15 at q = 512. Differentiable in B."""
+    s = W.shape[0]
+    if s < _TRMM_SPLIT or B.shape[-1] < _TRMM_RHS:
+        return _mm(W.T if transpose else W, B)
     h = s // 2
-    E, Fm, G = Wtri[:h, :h], Wtri[h:, :h], Wtri[h:, h:]
-    top = _trmm_ll(E, X[:h])
-    bot = _mm(Fm, X[:h]) + _trmm_ll(G, X[h:])
+    E, Fm, G = W[:h, :h], W[h:, :h], W[h:, h:]
+    if transpose:
+        top = tri_mm(E, B[:h], True) + _mm(Fm.T, B[h:])
+        bot = tri_mm(G, B[h:], True)
+    else:
+        top = tri_mm(E, B[:h])
+        bot = _mm(Fm, B[:h]) + tri_mm(G, B[h:])
     return torch.cat([top, bot], dim=0)
-
-
-def _trmm_ul(Wtri, X):
-    """``Wtriᵀ @ X`` with Wtri LOWER-triangular (upper-left TRMM)."""
-    s = Wtri.shape[0]
-    if s < _TRMM_SPLIT:
-        return _mm(Wtri.T, X)
-    h = s // 2
-    E, Fm, G = Wtri[:h, :h], Wtri[h:, :h], Wtri[h:, h:]
-    top = _trmm_ul(E, X[:h]) + _mm(Fm.T, X[h:])
-    bot = _trmm_ul(G, X[h:])
-    return torch.cat([top, bot], dim=0)
-
-
-def _inv_lower_blocked_rowpanel(L: torch.Tensor, block: int) -> torch.Tensor:
-    """Row-panel forward-substitution trtri (non-power-of-two fallback);
-    each diagonal block goes through ``_pallas_diag_inv``."""
-    n = L.shape[-1]
-    W = L.new_zeros((n, n))
-    for i in range(n // block):
-        r0 = i * block
-        Lii_inv = _pallas_diag_inv(L[r0:r0 + block, r0:r0 + block])
-        W[r0:r0 + block, r0:r0 + block] = Lii_inv
-        if i:
-            rhs = -_mm(L[r0:r0 + block, :r0], W[:r0, :r0])
-            W[r0:r0 + block, :r0] = _mm(Lii_inv, rhs)
-    return W
 
 
 def _lauum(W: torch.Tensor) -> torch.Tensor:
@@ -849,111 +811,67 @@ def _lauum(W: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Wide TRSM: invert-then-multiply (trtri + one GEMM)
+# Wide TRSM: invert-then-multiply (trtri + TRMMs)
 # ---------------------------------------------------------------------------
 
 
-def _padded_tri(L: torch.Tensor, block: int):
-    n = L.shape[-1]
-    pad = (-n) % block
-    return (_pad_identity(L, pad) if pad else L), n
+def _apply_inverse(W: torch.Tensor, B: torch.Tensor, mode: str) -> torch.Tensor:
+    """``A⁻¹ B`` from W = L⁻¹, for A = L (``"lower"``), Lᵀ (``"upper"``) or
+    LLᵀ (``"chol"``)."""
+    if mode == "lower":
+        return tri_mm(W, B)
+    if mode == "upper":
+        return tri_mm(W, B, transpose=True)
+    return tri_mm(W, tri_mm(W, B), transpose=True)
 
 
-def _wide_inverse(L: torch.Tensor) -> torch.Tensor:
-    LIBRARY_CALLS["wide_inverse"] += 1
-    with span("ops.wide_solve.inverse"):
-        Lp, n = _padded_tri(L, _BLOCK)
-        return _inv_lower_blocked(Lp, _BLOCK)[:n, :n]
+_ADJOINT = {"lower": "upper", "upper": "lower", "chol": "chol"}  # the mode of A⁻ᵀ
 
 
-def whiten_held(W: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``L⁻¹ B`` as ``W B`` for a held ``W = _wide_inverse(L)``
-    (``should_hold_inverse``). Below ``_HELD_TRMM_RHS`` columns one GEMM on
-    the whole W, from there the split TRMM, which skips W's upper triangle
-    but launches ~30 products at N = 8192: on an H100 the GEMM took 0.10 ms
-    at q = 1 against 0.99, 1.03 against 1.22 at q = 384, and 1.34 against
-    1.15 at q = 512. Differentiable in B."""
-    LIBRARY_CALLS["whiten_cached"] += 1
-    with span("ops.whiten"):
-        if B.shape[-1] < _HELD_TRMM_RHS:
-            return _mm(W, B)
-        return _trmm_ll(W, B)
+class _WideSolve(torch.autograd.Function):
+    """``X = A⁻¹ B`` for A = L, Lᵀ or LLᵀ (``mode``) by one trtri and
+    TRMMs. The adjoints (``pallas_chol.py:1222-1268``) reuse the forward's W
+    instead of running a second trtri: B̄ = A⁻ᵀ X̄, and L̄ = −tril(B̄ Xᵀ)
+    (lower), −tril(X B̄ᵀ) (upper), −tril((B̄ Xᵀ + X B̄ᵀ) L) (chol)."""
 
-
-# The adjoints (``pallas_chol.py:1222-1268``) reuse the L⁻¹ of the forward
-# instead of running a second trtri.
-
-
-class _SolveLowerWide(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, L, B):
+    def forward(ctx, L, B, mode):
         with span("ops.wide_solve"):
-            W = _wide_inverse(L)
+            LIBRARY_CALLS["wide_inverse"] += 1
+            with span("ops.wide_solve.inverse"):
+                W = lower_inverse(L)
             with span("ops.wide_solve.trmm"):
-                X = _trmm_ll(W, B)
-        ctx.save_for_backward(W, X)
-        return X
-
-    @staticmethod
-    def backward(ctx, Xbar):
-        # B̄ = L⁻ᵀ X̄, L̄ = −tril(B̄ Xᵀ)
-        W, X = ctx.saved_tensors
-        Bbar = _trmm_ul(W, Xbar)
-        Lbar = -torch.tril(_mm(Bbar, X.T)) if ctx.needs_input_grad[0] else None
-        return Lbar, Bbar
-
-
-class _SolveUpperWide(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, L, B):
-        with span("ops.wide_solve"):
-            W = _wide_inverse(L)
-            with span("ops.wide_solve.trmm"):
-                X = _trmm_ul(W, B)
-        ctx.save_for_backward(W, X)
-        return X
-
-    @staticmethod
-    def backward(ctx, Xbar):
-        # B̄ = L⁻¹ X̄, L̄ = −tril(X B̄ᵀ)
-        W, X = ctx.saved_tensors
-        Bbar = _trmm_ll(W, Xbar)
-        Lbar = -torch.tril(_mm(X, Bbar.T)) if ctx.needs_input_grad[0] else None
-        return Lbar, Bbar
-
-
-class _CholSolveWide(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, L, B):
-        with span("ops.wide_solve"):
-            W = _wide_inverse(L)
-            with span("ops.wide_solve.trmm"):
-                X = _trmm_ul(W, _trmm_ll(W, B))
+                X = _apply_inverse(W, B, mode)
+        ctx.mode = mode
         ctx.save_for_backward(L, W, X)
         return X
 
     @staticmethod
     def backward(ctx, Xbar):
-        # X = K⁻¹B, K = LLᵀ: B̄ = K⁻¹X̄; L̄ = −tril((B̄Xᵀ + XB̄ᵀ) L)
         L, W, X = ctx.saved_tensors
-        S = _trmm_ul(W, _trmm_ll(W, Xbar))
+        Bbar = _apply_inverse(W, Xbar, _ADJOINT[ctx.mode])
         Lbar = None
         if ctx.needs_input_grad[0]:
-            M = _mm(S, X.T)
-            Lbar = -torch.tril(_mm(M + M.T, L))
-        return Lbar, S
+            if ctx.mode == "lower":
+                Lbar = -torch.tril(_mm(Bbar, X.T))
+            elif ctx.mode == "upper":
+                Lbar = -torch.tril(_mm(X, Bbar.T))
+            else:
+                M = _mm(Bbar, X.T)
+                Lbar = -torch.tril(_mm(M + M.T, L))
+        return Lbar, Bbar, None
 
 
 def solve_lower_wide(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``L⁻¹ B`` for a fat RHS via trtri + GEMM (reference ``U' \\ B``)."""
-    return _SolveLowerWide.apply(L, B)
+    return _WideSolve.apply(L, B, "lower")
 
 
 def solve_upper_wide(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``L⁻ᵀ B`` for a fat RHS via trtri + GEMM (reference ``U \\ B``)."""
-    return _SolveUpperWide.apply(L, B)
+    return _WideSolve.apply(L, B, "upper")
 
 
 def chol_solve_wide(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``(L Lᵀ)⁻¹ B`` for a fat RHS: ONE trtri + two TRMMs."""
-    return _CholSolveWide.apply(L, B)
+    return _WideSolve.apply(L, B, "chol")

@@ -10,8 +10,8 @@ src/util/common_covmat_ops.jl:1-111). Factors are lower-triangular
     Xt_invA_X(A, X) = (U'\\X)'(U'\\X)  V = solve_lower(L, X); V'V
 
 At size on the card (f32) the Cholesky and the fat-RHS solves route to the
-blocked kernels of ``ops.blocked_chol``; everything else is
-``torch.linalg``.
+blocked kernels of ``ops.blocked_chol``, and ``Whitener`` keeps the inverse
+of a fixed factor; everything else is ``torch.linalg``.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import contextlib
 import torch
 
 from ..utils.profiling import LIBRARY_CALLS, span
+from . import blocked_chol
 
 __all__ = [
     "symmetrize",
@@ -30,6 +31,7 @@ __all__ = [
     "solve_lower",
     "solve_upper",
     "can_hold_inverse",
+    "Whitener",
     "chol_solve",
     "logdet_from_chol",
     "update_chol",
@@ -78,8 +80,6 @@ def cholesky_lower(A: torch.Tensor) -> torch.Tensor:
     (``blocked_chol.pallas_cholesky``), which reads ONLY the lower
     triangle. Everything else symmetrises by averaging.
     """
-    from . import blocked_chol
-
     LIBRARY_CALLS["cholesky_lower"] += 1
     with span("ops.cholesky"):
         if blocked_chol.should_use_pallas(A):
@@ -112,57 +112,91 @@ def _tri_solve(L, B, transpose: bool):
         return torch.linalg.solve_triangular(L, B, upper=False)
 
 
+def _inverse_path(L: torch.Tensor) -> bool:
+    """The one gate of the explicit inverse ``W = L⁻¹`` (the wide solves and
+    ``Whitener``): L an f32 matrix of N ≥ ``blocked_chol._MIN_N`` on the
+    blocked kernels' path (``blocked_chol.should_use_pallas``), outside
+    ``substitution_solves()``."""
+    return _WIDE_SOLVES and blocked_chol.should_use_pallas(L)
+
+
+def _wide_rhs(L: torch.Tensor, B: torch.Tensor) -> bool:
+    """Whether the solves invert L for the (n, q) right-hand side B: on the
+    inverse path with a FAT f32 B, q ≥ ``blocked_chol._WIDE_RHS`` (a thin
+    RHS keeps substitution, where the trtri's cost dominates)."""
+    return (_inverse_path(L) and B.dtype == torch.float32
+            and B.shape[-1] >= blocked_chol._WIDE_RHS)
+
+
+def _solve(L: torch.Tensor, B: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """``L⁻¹ B``, or ``L⁻ᵀ B`` with ``transpose``: the wide solve where
+    ``_wide_rhs`` holds, substitution otherwise."""
+    b_vec = B.ndim == 1
+    Bm = B[:, None] if b_vec else B
+    if _wide_rhs(L, Bm):
+        wide = blocked_chol.solve_upper_wide if transpose else blocked_chol.solve_lower_wide
+        X = wide(L, Bm)
+    else:
+        X = _tri_solve(L, Bm, transpose)
+    return X[:, 0] if b_vec else X
+
+
 def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``L X = B`` for lower-triangular L (reference ``U' \\ B``).
 
     Fat right-hand sides on the card route to the trtri+GEMM path
-    (``blocked_chol.solve_lower_wide``), which inverts L on every call; the
-    exact posterior, whose L is fixed, keeps that inverse instead
-    (``can_hold_inverse``). Explicit-inverse-then-multiply is not backward
-    stable; for noisy grams κ(L) stays small and the extra f32 error is
-    ≲ 1e-4 relative. Wrap jitter-only factors in ``substitution_solves()``.
+    (``blocked_chol.solve_lower_wide``), which inverts L on every call; a
+    caller whose L is fixed keeps that inverse instead (``Whitener``).
+    Explicit-inverse-then-multiply is not backward stable; for noisy grams
+    κ(L) stays small and the extra f32 error is ≲ 1e-4 relative. Wrap
+    jitter-only factors in ``substitution_solves()``.
     """
-    from . import blocked_chol
-
-    b_vec = B.ndim == 1
-    Bm = B[:, None] if b_vec else B
-    if _WIDE_SOLVES and blocked_chol.should_use_wide_solve(L, Bm):
-        X = blocked_chol.solve_lower_wide(L, Bm)
-    else:
-        X = _tri_solve(L, Bm, transpose=False)
-    return X[:, 0] if b_vec else X
+    return _solve(L, B, transpose=False)
 
 
 def solve_upper(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``L' X = B`` (reference ``U \\ B``); wide-RHS contract as for
     ``solve_lower``."""
-    from . import blocked_chol
-
-    b_vec = B.ndim == 1
-    Bm = B[:, None] if b_vec else B
-    if _WIDE_SOLVES and blocked_chol.should_use_wide_solve(L, Bm):
-        X = blocked_chol.solve_upper_wide(L, Bm)
-    else:
-        X = _tri_solve(L, Bm, transpose=True)
-    return X[:, 0] if b_vec else X
+    return _solve(L, B, transpose=True)
 
 
 def can_hold_inverse(L: torch.Tensor) -> bool:
-    """Whether a caller may keep ``W = L⁻¹`` of a fixed factor and whiten
-    by products with it (``blocked_chol.whiten_held``) in place of
-    ``solve_lower``: ``blocked_chol.should_hold_inverse(L)``, outside
-    ``substitution_solves()``."""
-    from . import blocked_chol
+    """Whether ``Whitener(L)`` keeps ``W = L⁻¹``: on the inverse path, with
+    no gradient flowing into L (W carries no adjoint back to L). Once W is
+    paid for, a product with it beats substitution at every q."""
+    return _inverse_path(L) and not (torch.is_grad_enabled() and L.requires_grad)
 
-    return _WIDE_SOLVES and blocked_chol.should_hold_inverse(L)
+
+class Whitener:
+    """``B ↦ L⁻¹ B`` for a fixed factor L. Where ``can_hold_inverse(L)``,
+    the first call forms ``W = L⁻¹`` (``blocked_chol.lower_inverse``), which
+    lives as long as this object, and every call whitens by one product with
+    it; elsewhere each call is ``solve_lower(L, B)``, with its adjoint into
+    L. A gradient in B flows through W either way."""
+
+    def __init__(self, L: torch.Tensor):
+        self.L = L
+        self.W = None
+
+    def __call__(self, B: torch.Tensor) -> torch.Tensor:
+        if not can_hold_inverse(self.L):
+            return solve_lower(self.L, B)
+        if self.W is None:
+            # a tensor with no graph whatever mode the first call runs in (a
+            # later call may differentiate through W in B)
+            with torch.inference_mode(False), torch.no_grad():
+                LIBRARY_CALLS["wide_inverse"] += 1
+                with span("ops.wide_solve.inverse"):
+                    self.W = blocked_chol.lower_inverse(self.L)
+        LIBRARY_CALLS["whiten_cached"] += 1
+        with span("ops.whiten"):
+            return blocked_chol.tri_mm(self.W, B)
 
 
 def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``A X = B`` given ``L = chol(A)`` (reference ``C \\ B``). A fat
     RHS on the card shares ONE triangular inverse between both solves."""
-    from . import blocked_chol
-
-    if _WIDE_SOLVES and B.ndim == 2 and blocked_chol.should_use_wide_solve(L, B):
+    if B.ndim == 2 and _wide_rhs(L, B):
         return blocked_chol.chol_solve_wide(L, B)
     return solve_upper(L, solve_lower(L, B))
 

@@ -46,8 +46,8 @@ H100_PEAK_F32 = 67e12
 
 # library calls of the ops layer, counted by the wrapper that makes them:
 # ``blocked_chol._mm`` GEMMs, ``covmat._tri_solve`` TRSMs,
-# ``covmat.cholesky_lower`` factors, ``blocked_chol._wide_inverse`` trtris,
-# ``blocked_chol.whiten_held`` products with a held inverse; the matvecs of
+# ``covmat.cholesky_lower`` factors, the trtris of the wide solves and of
+# ``covmat.Whitener``, the Whitener's products with its held inverse; the matvecs of
 # ``iterative.mbcg``, the steps under its ``max_iters`` that it skipped once
 # every column had frozen, and the steps it ran with no column active, the
 # exit's lag (counted only while a ``recording()`` is open: it takes a host

@@ -668,13 +668,13 @@ def kernel_checks(kernel, x, xs, L_full, slab_in, block_in):
     record("tri_inv_block", err, _tol_rel(kappa_l) * scale, ms, plain, lib,
            4.0 * nb * (B * (B + 1) / 2 + B * B), nb * B ** 3 / 3.0, [nb, B, B])
     device_times("tri_inv_block", lambda: blocked_chol.tri_inv_block(L, B), lib_blocks)
-    # the ragged paths' launch: one block read in place (the row-panel trtri)
+    # one block read in place, alone: the launch's fixed cost
     Lii = L[:B, :B]
     r = recs["tri_inv_block"]
-    r["one_block_device_ms"] = device_ms(lambda: blocked_chol._pallas_diag_inv(Lii))
+    r["one_block_device_ms"] = device_ms(lambda: blocked_chol.tri_inv_block(Lii, B))
     r["one_block_library_device_ms"] = device_ms(
         lambda: torch.linalg.solve_triangular(Lii, eyeB, upper=False))
-    print(f"[kernel tri_inv_block] one block (ragged paths' launch): device time per call "
+    print(f"[kernel tri_inv_block] one block alone: device time per call "
           f"{_ms(r['one_block_device_ms'])} ms, library {_ms(r['one_block_library_device_ms'])} ms",
           flush=True)
     return recs
@@ -3721,7 +3721,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     # the ragged width's prediction and gradient, which run the row-panel
-    # trtri (36 one-block tri_inv_block launches each)
+    # trtri (36 diagonal blocks in one batched tri_inv_block launch each)
     def pred_ragged_once():
         p = agt.posterior(agt.GP(kernel_r)(xr, NOISE), yr)
         m_, v_ = p.mean_and_var(xsr)

@@ -15,6 +15,7 @@ which reads the masks at once, no step runs with every column frozen.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 from cg_fixed_trip import assert_bitwise, fixed_trip_mbcg
 
 import abstractgps_tpu_torch as agt

@@ -23,6 +23,7 @@ import math
 
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import abstractgps_tpu_torch.params as P
 from abstractgps_tpu_torch.ops import distance

@@ -13,6 +13,7 @@ drifts from the logpdf.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import abstractgps_tpu_torch as agt
 from abstractgps_tpu_torch.models import svgp as tsv

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 import abstractgps_tpu_torch as agt
 from abstractgps_tpu_torch.ops import blocked_chol, cuda as cuda_ops, fused_gram, precision
@@ -194,11 +195,11 @@ def test_tri_inv_block_batched_and_strided(cuda, gen):
     _close(got, want)
     # one block read in place out of the big factor (row stride n)
     one = _launched("tri_inv_block",
-                    lambda: blocked_chol._pallas_diag_inv(L[256:384, 256:384]))
+                    lambda: blocked_chol.tri_inv_block(L[256:384, 256:384], B)[0])
     _close(one, want[2])
     # a column-major factor is taken too (copied to row-major by the wrapper)
     torch.testing.assert_close(blocked_chol.tri_inv_block(L_cm, B), got, rtol=0, atol=0)
-    torch.testing.assert_close(blocked_chol._pallas_diag_inv(L_cm[256:384, 256:384]), one,
+    torch.testing.assert_close(blocked_chol.tri_inv_block(L_cm[256:384, 256:384], B)[0], one,
                                rtol=0, atol=0)
 
 
@@ -229,10 +230,10 @@ def test_tri_inv_block_shapes_strides_and_contract(cuda, gen, B, nb):
     # a column-major copy is taken too (copied to row-major by the wrapper)
     L_cm = L.T.contiguous().T
     torch.testing.assert_close(blocked_chol.tri_inv_block(L_cm, B), got, rtol=0, atol=0)
-    # one block read in place, as the row-panel trtri calls it
+    # one block read in place, alone
     i = nb // 2
-    one = _launched("tri_inv_block", lambda: blocked_chol._pallas_diag_inv(
-        L[i * B:(i + 1) * B, i * B:(i + 1) * B]))
+    one = _launched("tri_inv_block", lambda: blocked_chol.tri_inv_block(
+        L[i * B:(i + 1) * B, i * B:(i + 1) * B], B)[0])
     torch.testing.assert_close(one, got[i], rtol=0, atol=0)
 
 
@@ -240,7 +241,7 @@ def test_tri_inv_block_takes_edges_that_are_multiples_of_8(cuda):
     with pytest.raises(ValueError):
         blocked_chol.tri_inv_block(torch.eye(100, device=cuda), 50)
     with pytest.raises(ValueError):
-        blocked_chol._pallas_diag_inv(torch.eye(60, device=cuda))
+        blocked_chol.tri_inv_block(torch.eye(60, device=cuda), 60)
 
 
 def test_cuda_tensors_never_take_the_plain_version(cuda):

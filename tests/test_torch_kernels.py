@@ -21,7 +21,7 @@ from torch_port_helpers import kernel_tree, small_kernel_paths, spd
 import abstractgps_tpu as agp
 import abstractgps_tpu_torch as agt
 from abstractgps_tpu.ops import pallas_chol, pallas_gram
-from abstractgps_tpu_torch.ops import blocked_chol, fused_gram
+from abstractgps_tpu_torch.ops import blocked_chol, covmat, fused_gram
 
 F32 = dict(rtol=1e-5, atol=2e-6)
 
@@ -124,8 +124,24 @@ def test_tri_inv_block_matches_pallas(rng):
     got = blocked_chol.tri_inv_block(_t(L), B)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     one = pallas_chol._pallas_diag_inv(jnp.asarray(L[16:32, 16:32]))
-    np.testing.assert_allclose(blocked_chol._pallas_diag_inv(_t(L)[16:32, 16:32]).detach().numpy(),
-                               np.asarray(one), rtol=1e-5, atol=1e-5)
+    one_t = blocked_chol.tri_inv_block(_t(L)[16:32, 16:32], B)[0]
+    np.testing.assert_allclose(one_t.detach().numpy(), np.asarray(one), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [80, 128])
+def test_lower_inverse_matches_pallas(rng, n, _small_paths):
+    # n = 80: five 16-wide blocks, the row-panel trtri; n = 128: eight, the
+    # doubling merges. Either way the diagonal blocks come from ONE batched
+    # tri_inv_block call
+    L = np.linalg.cholesky(spd(rng, n)).astype(np.float32)
+    want = np.asarray(pallas_chol._inv_lower_blocked(jnp.asarray(L), 16))
+    calls = []
+    tri_inv_block = blocked_chol.tri_inv_block
+    _small_paths.setattr(blocked_chol, "tri_inv_block",
+                         lambda *a: calls.append(a[1]) or tri_inv_block(*a))
+    got = blocked_chol.lower_inverse(_t(L)).detach().numpy()
+    assert calls == [16]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("n,m", [(8192, 8192), (8192, 4096), (4096, 8192), (1000, 700),
@@ -167,10 +183,11 @@ def test_cholesky_gram_with_carried_rhs(rng, n, _small_paths):
     np.testing.assert_allclose(blocked_chol.cholesky_gram(kt, _t(x), _t(nd)).detach().numpy(),
                                L_t.detach().numpy(), rtol=0, atol=0)
     # the slab path against the per-block path (every block through
-    # chol_inv_block), both in f32
-    _small_paths.setattr(blocked_chol, "_SLAB", False)
-    L_b, Z_b = blocked_chol._cholesky_gram_impl(kt, _t(x), _t(nd), 16, rhs=_t(rhs))
-    _small_paths.setattr(blocked_chol, "_SLAB", True)
+    # chol_inv_block: an outer width above npad leaves no full slab), both
+    # in f32
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(blocked_chol, "_OUTER", 256)
+        L_b, Z_b = blocked_chol._cholesky_gram_impl(kt, _t(x), _t(nd), 16, rhs=_t(rhs))
     np.testing.assert_allclose(L_b.detach().numpy(), L_t.detach().numpy(), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(Z_b.detach().numpy(), Z_t.detach().numpy(), rtol=2e-5,
                                atol=2e-5 * np.abs(np.asarray(Zj)).max())
@@ -200,16 +217,17 @@ def test_wide_solves_match_pallas(rng, n, m, _small_paths):
     L = np.linalg.cholesky(spd(rng, n)).astype(np.float32)
     B = rng.normal(size=(n, m)).astype(np.float32)
     Lj, Bj = jnp.asarray(L), jnp.asarray(B)
-    assert blocked_chol.should_use_wide_solve(_t(L), _t(B))
+    assert covmat._wide_rhs(_t(L), _t(B))
     for port, ref in ((blocked_chol.solve_lower_wide, pallas_chol.solve_lower_wide),
                       (blocked_chol.solve_upper_wide, pallas_chol.solve_upper_wide),
                       (blocked_chol.chol_solve_wide, pallas_chol.chol_solve_wide)):
         want = np.asarray(ref(Lj, Bj))
         got = port(_t(L), _t(B)).detach().numpy()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
-        # the split TRMMs (taken at full size, from _TRMM_SPLIT rows) give
-        # the same product as the unsplit ones
-        _small_paths.setattr(blocked_chol, "_TRMM_SPLIT", 32)
-        split = port(_t(L), _t(B)).detach().numpy()
-        _small_paths.setattr(blocked_chol, "_TRMM_SPLIT", 2048)
+        # the split TRMMs (taken at full size, from _TRMM_SPLIT rows and
+        # _TRMM_RHS columns) give the same product as the unsplit ones
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(blocked_chol, "_TRMM_SPLIT", 32)
+            mp.setattr(blocked_chol, "_TRMM_RHS", 1)
+            split = port(_t(L), _t(B)).detach().numpy()
         np.testing.assert_allclose(split, got, rtol=1e-5, atol=1e-5 * np.abs(want).max())

@@ -47,7 +47,7 @@ from abstractgps_tpu_torch.inference.mcmc import (
     run_mcmc,
 )
 from abstractgps_tpu_torch.inference.mcmc.hmc import IntegratorState
-from abstractgps_tpu_torch.ops import blocked_chol, cuda, distance, fused_gram
+from abstractgps_tpu_torch.ops import blocked_chol, covmat, cuda, distance, fused_gram
 
 F64 = torch.float64
 
@@ -586,7 +586,7 @@ def test_set_enabled_false_takes_the_library_path(monkeypatch):
             mp.setattr(mod, name, spy)
         gates = lambda: [blocked_chol.should_use_pallas(A),  # noqa: E731
                          blocked_chol.should_use_fused_gram(x, y),
-                         blocked_chol.should_use_wide_solve(A, B),
+                         covmat._wide_rhs(A, B),
                          fused_gram.should_use_kernel(x, x)]
         assert gates() == [True] * 4
         lml_and_grad()

@@ -3,9 +3,10 @@ interpret mode (both packages at the small sizes of
 ``torch_port_helpers.SMALL``: 16-wide blocks, kernel paths from N = 32,
 wide solves from q = 16).
 
-- W is formed once, by ``blocked_chol._wide_inverse``, by the first
-  whitening predictive, and every predictive whitens by one product with it
-  at q = 1, 15, 16 and 40, on either side of ``_WIDE_RHS``. The answers
+- W is formed once, by ``blocked_chol.lower_inverse`` in the posterior's
+  ``covmat.Whitener``, by the first whitening predictive, and every
+  predictive whitens by one product with it at q = 1, 15, 16 and 40, on
+  either side of ``_WIDE_RHS``. The answers
   agree with the per-query path (``covmat.solve_lower``: substitution below
   q = 16, the wide solve from there) and with the JAX package's posterior.
 - A posterior whose hyperparameters carry a graph keeps the per-query path,
@@ -130,7 +131,7 @@ def test_the_held_inverse_serves_every_predictive(_paths, jax_answers, q):
     _, _, xs, zs = _data()
     xq, zt = torch.as_tensor(xs[:q]), torch.as_tensor(zs)
     post = _posterior()
-    assert post._W is None and covmat.can_hold_inverse(post.data.L)
+    assert post._whiten.W is None and covmat.can_hold_inverse(post.data.L)
     profiling.reset_library_calls()
     with torch.no_grad():
         out = _held(post, xq, zt)
@@ -139,7 +140,7 @@ def test_the_held_inverse_serves_every_predictive(_paths, jax_answers, q):
     assert profiling.LIBRARY_CALLS["wide_inverse"] == 1
     assert profiling.LIBRARY_CALLS["whiten_cached"] == 6
     assert profiling.LIBRARY_CALLS["tri_solve"] == 0
-    assert torch.equal(post._W, blocked_chol._wide_inverse(post.data.L))
+    assert torch.equal(post._whiten.W, blocked_chol.lower_inverse(post.data.L))
 
     with torch.no_grad():
         want = _per_query(post, xq, zt)
@@ -148,9 +149,9 @@ def test_the_held_inverse_serves_every_predictive(_paths, jax_answers, q):
     jax_q = {"mean": jax_answers["mean"][:q], "var": jax_answers["var"][:q],
              "cov": jax_answers["cov"][:q, :q], "cov_z": jax_answers["cov_z"][:q]}
     _check(out, jax_q, 1e-4 * mean_scale)
-    # the split TRMM, which a held W takes from _HELD_TRMM_RHS columns on,
-    # gives the same answers as the one GEMM below it
-    _paths.setattr(blocked_chol, "_HELD_TRMM_RHS", 1)
+    # the split TRMM, which a held W takes from _TRMM_RHS columns on, gives
+    # the same answers as the one GEMM below it
+    _paths.setattr(blocked_chol, "_TRMM_RHS", 1)
     _paths.setattr(blocked_chol, "_TRMM_SPLIT", 32)
     with torch.no_grad():
         _close(post.mean_and_var(xq)[1], out["var"], 1e-5 * S2)
@@ -173,7 +174,7 @@ def test_a_posterior_with_a_graph_keeps_the_per_query_path_and_its_gradient():
         ref = torch.autograd.grad(mu.sum() + var.sum(), th, retain_graph=True)
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
-    assert post._W is None
+    assert post._whiten.W is None
 
 
 def _per_query_mean_and_var(post, xq):
@@ -195,7 +196,7 @@ def test_a_gradient_in_the_test_inputs_flows_through_the_held_inverse(q):
     with torch.inference_mode():  # W formed here still serves autograd later
         post.mean_and_var(xq)
     got = _grad_x(post, xq, lambda p, x: p.mean_and_var(x))
-    assert not post._W.is_inference() and not post._W.requires_grad
+    assert not post._whiten.W.is_inference() and not post._whiten.W.requires_grad
     per_query = _grad_x(post, xq, _per_query_mean_and_var)
     truth = _grad_x(_posterior(dtype=torch.float64), xq.double(),
                     lambda p, x: p.mean_and_var(x))
@@ -212,7 +213,7 @@ def test_substitution_solves_keep_the_triangular_solve():
         assert profiling.LIBRARY_CALLS["tri_solve"] == 1
         assert profiling.LIBRARY_CALLS["wide_inverse"] == 0
         assert profiling.LIBRARY_CALLS["whiten_cached"] == 0
-    assert post._W is None
+    assert post._whiten.W is None
 
 
 def test_a_sequential_posterior_forms_its_own_inverse():
@@ -221,14 +222,14 @@ def test_a_sequential_posterior_forms_its_own_inverse():
     first = _posterior(100)
     with torch.no_grad():
         first.mean_and_var(xq)
-    W1 = first._W
+    W1 = first._whiten.W
     assert W1.shape == (100, 100)
     with torch.no_grad():
         seq = agt.posterior(first(torch.as_tensor(x[100:]), NOISE), torch.as_tensor(y[100:]))
-        assert seq._W is None
+        assert seq._whiten.W is None
         got = seq.mean_and_var(xq)
-        assert seq._W.shape == (N, N) and first._W is W1
-        assert torch.equal(seq._W, blocked_chol._wide_inverse(seq.data.L))
+        assert seq._whiten.W.shape == (N, N) and first._whiten.W is W1
+        assert torch.equal(seq._whiten.W, blocked_chol.lower_inverse(seq.data.L))
         _close(got[1], _per_query_mean_and_var(seq, xq)[1], 1e-5 * S2)
 
 
@@ -244,6 +245,6 @@ def test_the_library_path_forms_no_inverse(_paths, case):
     with torch.no_grad():
         for q in (1, Q):
             _held(post, torch.as_tensor(xs[:q], dtype=dtype), torch.as_tensor(zs, dtype=dtype))
-    assert post._W is None
+    assert post._whiten.W is None
     assert profiling.LIBRARY_CALLS["wide_inverse"] == 0
     assert profiling.LIBRARY_CALLS["whiten_cached"] == 0

@@ -246,7 +246,7 @@ def test_chol_pullback_by_substitution(chol_pullback_inputs, noise):
         def no_inverse(*_):
             raise AssertionError("the pullback formed an explicit inverse")
 
-        mp.setattr(blocked_chol, "_wide_inverse", no_inverse)
+        mp.setattr(blocked_chol, "lower_inverse", no_inverse)
         (Abar,) = torch.autograd.grad(L, At, torch.as_tensor(Lbar))
     Abar, truth = _n(Abar).astype(np.float64), _pullback_f64(_n(L), Lbar)
     err = _rel_lower(Abar, truth)

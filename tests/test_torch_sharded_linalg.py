@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401
 
 import abstractgps_tpu as agp
 from abstractgps_tpu.ops.noise import DenseNoise

@@ -165,8 +165,9 @@ def test_slice_f32_matches_jax_sweep(jax_slice, monkeypatch):
     assert fx.x.dtype == torch.float32 and lp.dtype == torch.float32
     # logpdf and posterior: 2 full 64-wide slabs each; the 32-wide tail of
     # npad = 160 goes block by block; the prediction solve has nb = 10
-    # blocks (not a power of two) → the row-panel trtri, one block at a time
-    assert calls == {"slab_factor": 4, "chol_inv_block": 4, "tri_inv_block": 10}
+    # blocks (not a power of two) → the row-panel trtri, its diagonal blocks
+    # in one batched call
+    assert calls == {"slab_factor": 4, "chol_inv_block": 4, "tri_inv_block": 1}
     np.testing.assert_allclose(float(lp.detach()), lp_j, rtol=1e-5)
     assert mu.shape == (M,) and var.shape == (M,)
     # the mean goes through α = K⁻¹δ: κ(K) ≈ 740 here, so each package's f32

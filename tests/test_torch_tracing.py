@@ -26,6 +26,7 @@ from collections import Counter
 
 import pytest
 import torch
+import torch_threads  # noqa: F401
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import abstractgps_tpu_torch as agt

@@ -11,6 +11,7 @@ import matplotlib
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 matplotlib.use("Agg")
 import matplotlib.pyplot as plt  # noqa: E402

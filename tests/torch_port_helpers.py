@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 from abstractgps_tpu.ops import pallas_chol, pallas_gram
 from abstractgps_tpu_torch.ops import blocked_chol, distance, fused_gram
