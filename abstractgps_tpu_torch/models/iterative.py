@@ -5,9 +5,12 @@ GPyTorch's BBMM (Gardner et al. 2018, arXiv:1809.11165) and stochastic
 Lanczos quadrature (Dong et al. 2017, arXiv:1711.03481):
 
 - every CG step is one gram matvec: one GEMM against the dense gram when
-  N ≤ ``max_dense_n``, else the panels rebuilt on the fly
-  (``ops.matvec.gram_matvec``; on the card each panel is one ``gram_tile``
-  launch), so memory stays O(panel·N);
+  N ≤ ``max_dense_n``, else the gram formed on the fly
+  (``ops.matvec.make_gram_matvec``): for an isotropic kernel under
+  scalings and transforms one launch of the fused kernel ``gram_matvec``
+  on the card, which never stores K; for any other kernel the panels
+  rebuilt one by one (``ops.matvec.gram_matvec``, one ``gram_tile`` launch
+  a panel), so memory stays O(panel·N);
 - the solver is batched (mBCG): the data solve and all probe solves share
   every matvec, and it stops once every column has frozen (``max_iters`` is
   a cap, as in GPyTorch's ``linear_cg``); on the card it learns that from
@@ -27,7 +30,8 @@ Spans (``utils.profiling``): ``model.cg_logpdf`` around ``cg_logpdf``;
 solver; ``ops.cg.solve`` around one ``mbcg``, ``ops.cg.matvec`` around each
 of its steps' matvec (not each panel); ``ops.cg.slq`` around the
 quadrature; ``ops.cg_backward`` around a backward's panel contraction.
-``LIBRARY_CALLS["cg_matvec"]`` counts the solver's matvecs,
+``LIBRARY_CALLS["cg_matvec"]`` counts the solver's matvecs (and
+``"cg_fused_matvec"``, at ``ops.matvec``, those of the fused route),
 ``"cg_skipped_matvec"`` the steps under ``max_iters`` it did not run, and,
 while a ``recording()`` is open, ``"cg_converged_matvec"`` the steps it ran
 with no column of the batch active (the exit's lag on the card).

@@ -28,7 +28,7 @@ __all__ = ["library", "build", "stream", "check", "LAUNCHES", "reset_launches"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = ("gram_tile.cu", "chol_inv_block.cu", "slab_factor.cu", "tri_inv_block.cu",
-            "gram_bwd.cu", "logpdf_contraction.cu", "chol_block.cu")
+            "gram_bwd.cu", "logpdf_contraction.cu", "chol_block.cu", "gram_matvec.cu")
 _HEADERS = ("block_routines.cuh", "gram_sweep.cuh")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "agp_logpdf_contraction": (_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # A, lda, L, B, stream
     "agp_chol_block": (_P, _L, _P, _I, _P),
+    # x, V, params, s2, noise, out, part, n, d, q, family, splits, stream
+    "agp_gram_matvec": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _LIB = None
@@ -57,7 +59,7 @@ _LIB = None
 # launches of each kernel, counted by its wrapper where it launches it and
 # nowhere else (so a run can show that the main path went through it)
 LAUNCHES = {"gram_tile": 0, "slab_factor": 0, "chol_inv_block": 0, "tri_inv_block": 0,
-            "logpdf_contraction": 0, "gram_bwd": 0, "chol_block": 0}
+            "logpdf_contraction": 0, "gram_bwd": 0, "chol_block": 0, "gram_matvec": 0}
 
 
 def reset_launches() -> None:

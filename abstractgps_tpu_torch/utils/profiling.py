@@ -51,10 +51,11 @@ H100_PEAK_F32 = 67e12
 # ``iterative.mbcg``, the steps under its ``max_iters`` that it skipped once
 # every column had frozen, and the steps it ran with no column active, the
 # exit's lag (counted only while a ``recording()`` is open: it takes a host
-# read of the solver's state)
+# read of the solver's state); the matvecs that took ``ops.matvec``'s fused
+# route (one launch of ``gram_matvec``)
 LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0,
                  "whiten_cached": 0, "cg_matvec": 0, "cg_skipped_matvec": 0,
-                 "cg_converged_matvec": 0}
+                 "cg_converged_matvec": 0, "cg_fused_matvec": 0}
 
 UNIT_ROOTS = ("fit.step", "posterior.mean_and_var")
 

@@ -30,14 +30,16 @@ of capacity 8192 against the exact posterior, and one past the capacity,
 which must give NaN (``[online]``); each with its launches per step or
 extend and its kernels against their plain versions on its own inputs.
 Then the matrix-free CG backend at N = 32 768 (D = 8, σ²·Matérn-3/2,
-σ² = ℓ = 1, noise 0.1, ``CGInference()``'s defaults: 32 panels of 1024
-rows a matvec): ``approx_log_evidence``, its gradient in (σ², ℓ, noise),
+σ² = ℓ = 1, noise 0.1, ``CGInference()``'s defaults: one fused matvec,
+``gram_matvec``, a solver step; the backward's 32 panels of 1024 rows):
+``approx_log_evidence``, its gradient in (σ², ℓ, noise),
 the posterior, ``mean`` at 4096 points and ``mean_and_var`` at 256, each
 with its launches, host times and the steps its CG columns stayed active,
 against a dense f64 oracle (true residuals, the SLQ logdet in standard
 errors of its probes, the ∇ in its spread over four probe seeds, the
 posterior within CG's A-norm bound), again with the fused gram switched
-off (``[cg]``); and 1024 pathwise samples of the full-width exact
+off (``[cg]``), the fused matvec against its plain version and timed at
+N = 32 768, q = 33; and 1024 pathwise samples of the full-width exact
 posterior at 4096 points, their moments against the f64 posterior
 (``[pathwise]``).
 Checks values and gradients against f64 ``torch.linalg`` oracles on the
@@ -95,6 +97,8 @@ KERNELS = {
                  "abstractgps_tpu/ops/pallas_gram.py:185"),
     "chol_block": ("abstractgps_tpu_torch/csrc/chol_block.cu",
                    "abstractgps_tpu/ops/pallas_chol.py:455"),
+    "gram_matvec": ("abstractgps_tpu_torch/csrc/gram_matvec.cu",
+                    "none (abstractgps_tpu/ops/matvec.py's lax.fori_loop over gram panels)"),
 }
 # kernels that no path of the port runs: their launches are those of their
 # own phase in ``kernel_checks``
@@ -1046,6 +1050,42 @@ def gram_tile_timing(tag, args):
     return dict(device_ms=dev_tile, bound_ms=b_)
 
 
+def gram_matvec_check(args):
+    """The fused CG matvec on the inputs the [cg] logpdf gave it (x̂, the
+    (N, 33) block, the family, its hyperparameter buffer, σ², the noise,
+    the panel): against its plain version within f32 rounding of N-term
+    sums, 4·√N·eps32·(σ²·Σ_j |V_jc| + noise·|V_ic|) (|K₀| ≤ 1), bit for bit
+    against a second call; its time with CUDA events and in device time
+    (the sweep and its in-order sum), the plain version's, and the bound
+    (operations: N²·(3D + 12 + 2q); bytes 4·(N·D + 2·N·q)). Printed;
+    returns the kernel table's record."""
+    import torch
+
+    from abstractgps_tpu_torch.ops import matvec
+
+    x, V, fam, buf, s2, nd, panel = args
+    (n, d), q = x.shape, V.shape[1]
+    got = matvec.gram_matvec_fused(*args)
+    same = torch.equal(got, matvec.gram_matvec_fused(*args))
+    want = matvec.gram_matvec_plain(*args)
+    Va = V.abs().double()
+    tol = 4.0 * math.sqrt(n) * EPS32 * (float(s2) * Va.sum(0)[None, :]
+                                        + nd.double()[:, None] * Va)
+    excess = float(((got.double() - want.double()).abs() / tol).max())
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: matvec.gram_matvec_fused(*args), 20)
+    plain = cuda_ms(lambda: matvec.gram_matvec_plain(*args), 1)
+    dev = device_ms(lambda: matvec.gram_matvec_fused(*args))
+    b_, by = bound_ms(4.0 * (n * d + 2.0 * n * q), n * n * (3.0 * d + 12.0 + 2.0 * q))
+    ok = same and excess <= 1.0
+    print(f"[kernel gram_matvec] cg {[n, d, q]}: max_abs_err {err:.3e} (largest error / its "
+          f"tolerance {excess:.3f}); a second call bit for bit: {same}; {ms:.4f} ms, device "
+          f"time per call {_ms(dev)} ms, plain {plain:.4f} ms, bound {b_:.4f} ms ({by}); "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return dict(max_abs_err=err, tol="4·√N·eps32·Σ|terms|", shape=[n, d, q], ok=ok, ms=ms,
+                plain_ms=plain, library_ms=None, device_ms=dev, bound_ms=b_, bound_by=by)
+
+
 def report_checks(tag, out):
     """Print each (error, tolerance, shape[, ok]) of ``out`` under ``tag``;
     returns name → dict(max_abs_err, shape, ok)."""
@@ -1863,12 +1903,13 @@ def run_online(seed, dev, fitted):
 # ---------------------------------------------------------------------------
 
 # [cg]: N = 32 768 (four times the exact path's width, past max_dense_n =
-# 8192: a matvec rebuilds 32 panels of 1024 rows), D = 8, σ²·Matérn-3/2 with
+# 8192: a matvec is one fused gram_matvec, the backward rebuilds 32 panels of
+# 1024 rows), D = 8, σ²·Matérn-3/2 with
 # ℓ, σ² = ℓ = 1, noise 0.1, f32, ``CGInference()``'s defaults (32 probes,
 # 256 steps, rank-64 preconditioner, probe seed 0); the posterior mean at
 # 4096 points and ``mean_and_var`` at 256; the ∇'s spread over 4 probe seeds
 CG = dict(n=32768, d=8, m_mean=4096, m_var=256, noise=0.1, seeds=4)
-CG_KERNELS = ("gram_tile", "gram_bwd")
+CG_KERNELS = ("gram_tile", "gram_bwd", "gram_matvec")
 # [pathwise]: the exact posterior of the [e2e] data (N = 8192, D = 8), 1024
 # random features, 1024 paths, evaluated at the 4096 test points
 PATHWISE = dict(n=8192, m=4096, d=8, features=1024, samples=1024)
@@ -2039,7 +2080,7 @@ def run_cg(seed, dev):
     runs, ok = {}, True
     # the logpdf: its mbcg (α, the coefficients) and slq_logdet arguments kept
     with record_calls(iterative, "mbcg") as mb, record_calls(iterative, "slq_logdet") as sq, \
-            capture_first_input("gram_tile", "fused_gram") as c1:
+            capture_first_input("gram_matvec_fused", "matvec") as cm:
         torch.cuda.synchronize()
         reset_launches()
         lp = logpdf()
@@ -2054,7 +2095,8 @@ def run_cg(seed, dev):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as c6:
+    with capture_first_input("gram_bwd", "fused_gram", key=lambda a: a[6]) as c6, \
+            capture_first_input("gram_tile", "fused_gram") as c1:
         reset_launches()
         g0 = grad()
         torch.cuda.synchronize()
@@ -2090,9 +2132,9 @@ def run_cg(seed, dev):
         "mean_and_var": host_ms(lambda: post.mean_and_var(xs_v), 1),
     }
     probe_steps = lp_steps[1:]
-    panels = -(-n // inf.panel) if n > inf.max_dense_n else "no (dense)"
+    route = "one fused gram_matvec" if n > inf.max_dense_n else "one dense GEMM"
     print(f"[cg] N={n} D={c['d']} f32, CGInference() (32 probes, 256 steps, rank-64 "
-          f"preconditioner), {panels} panels a matvec: logpdf {float(lp):.4f}; host ms of warm "
+          f"preconditioner), {route} a matvec: logpdf {float(lp):.4f}; host ms of warm "
           f"calls (each ending in a synchronize): "
           + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in t)}" for k, t in times.items())
           + f"; peak memory of the ∇ above its inputs {peak_gib:.3f} GiB", flush=True)
@@ -2195,6 +2237,7 @@ def run_cg(seed, dev):
     # the kernels on the path's own inputs
     pargs = c1.calls[None]
     checks = report_checks("cg", {"gram_tile cg panel": forward_kernel_check("gram_tile", pargs)})
+    checks["gram_matvec cg"] = gram_matvec_check(cm.calls[None])
     bwd = gram_bwd_checks(c6.calls, tag="cg gram_bwd")
     for mode, r in bwd["modes"].items():
         checks[f"gram_bwd {mode}"] = dict(max_abs_err=r["max_abs_err"], shape=r["shape"],
@@ -3632,9 +3675,9 @@ def main(argv=None) -> int:
             f"svgp M={SPARSE['m_big']}": ("gram_tile", "slab_factor", "tri_inv_block", "gram_bwd"),
             "sparse elbo grad": ("gram_tile", "gram_bwd"),
             "online extends": tuple(ONLINE_EXTEND_LAUNCHES),
-            "cg logpdf": ("gram_tile",), "cg grad": CG_KERNELS, "cg posterior": ("gram_tile",),
-            "cg mean": ("gram_tile",), "cg mean_and_var": ("gram_tile",),
-            "cg grad forward": ("gram_tile",), "cg grad backward": CG_KERNELS,
+            "cg logpdf": ("gram_matvec",), "cg grad": CG_KERNELS, "cg posterior": ("gram_matvec",),
+            "cg mean": ("gram_tile",), "cg mean_and_var": ("gram_tile", "gram_matvec"),
+            "cg grad forward": ("gram_tile", "gram_matvec"), "cg grad backward": CG_KERNELS,
             **{f"dp elbo step rank {r}": tuple(DP_STEP_LAUNCHES) for r in range(DP["world"])},
             **{f"dp nuts rank {r}": HYPER_KERNELS for r in range(DP["world"])},
             **{f"tp {p} rank {r}": tuple(TP_LAUNCHES[p]) for p in TP_LAUNCHES
@@ -3673,6 +3716,7 @@ def main(argv=None) -> int:
         recs = kernel_checks(kernel, x, xs, post.data.L.detach(), slab_in.value,
                              block_in.value)
         recs.update(backward_kernel_checks(contr_in.calls[None], bwd_in.calls))
+    recs["gram_matvec"] = checks_cg["gram_matvec cg"]  # timed at the [cg] path's own shapes
     ok = ok and all(r["ok"] for r in recs.values())
 
     # ---- end to end ----------------------------------------------------------

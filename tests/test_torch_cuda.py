@@ -666,26 +666,99 @@ def test_online_extend_past_capacity_returns_nan_on_the_card(cuda, gen):
 
 
 def test_cg_matvec_launches_one_gram_tile_per_panel(cuda, gen):
-    # past max_dense_n the CG matvec rebuilds the gram in 1024-row panels,
-    # one gram_tile launch each (the last one ragged, zero-padded), and
-    # agrees with the dense f64 product to f32 rounding of N-term sums
+    # a kernel the fused route does not take (a sum: Matérn-3/2 with ℓ plus
+    # a constant) keeps the panel loop past max_dense_n: the gram rebuilt in
+    # 1024-row panels, one gram_tile launch each (the last one ragged,
+    # zero-padded), no fused matvec; it agrees with the dense f64 product to
+    # f32 rounding of N-term sums
     from abstractgps_tpu_torch.ops.matvec import gram_matvec, make_gram_matvec
 
     n, d = 4196, 8
     x = torch.as_tensor(gen.uniform(size=(n, d)), dtype=torch.float32, device=cuda)
     V = torch.as_tensor(gen.normal(size=(n, 5)), dtype=torch.float32, device=cuda)
     nd = torch.full((n,), 0.1, dtype=torch.float32, device=cuda)
-    k = agt.with_lengthscale(agt.Matern32Kernel(), 0.9).to(device=cuda, dtype=torch.float32)
+    k = (agt.with_lengthscale(agt.Matern32Kernel(), 0.9) + agt.ConstantKernel(0.3)).to(
+        device=cuda, dtype=torch.float32)
     mv = make_gram_matvec(k, x, nd, panel=1024, max_dense_n=1024)
     cuda_ops.reset_launches()
+    fused = profiling.LIBRARY_CALLS["cg_fused_matvec"]
     got = mv(V)
     torch.cuda.synchronize()
     assert cuda_ops.LAUNCHES["gram_tile"] == 5, cuda_ops.LAUNCHES
+    assert cuda_ops.LAUNCHES["gram_matvec"] == 0
+    assert profiling.LIBRARY_CALLS["cg_fused_matvec"] == fused
     got_vec = gram_matvec(k, x, nd, V[:, 0], panel=1024)
     K64 = agt.kernelmatrix(copy.deepcopy(k).double(), x.double())
     want = K64 @ V.double() + 0.1 * V.double()
     _close(got.double(), want, rel=1e-4)
     _close(got_vec.double(), want[:, 0], rel=1e-4)
+
+
+def _matvec_problem(gen, n, q, cuda):
+    x = torch.as_tensor(gen.uniform(size=(n, 8)), dtype=torch.float32, device=cuda)
+    V = torch.as_tensor(gen.normal(size=(n, q)), dtype=torch.float32, device=cuda)
+    nd = torch.as_tensor(0.1 + 0.05 * gen.uniform(size=n), dtype=torch.float32, device=cuda)
+    return x, V, nd
+
+
+@pytest.mark.parametrize("n,q", [(32768, 33), (3000, 1), (3000, 33), (32767, 1), (32767, 33),
+                                 (3000, 70)])
+def test_gram_matvec_matches_plain_and_f64_bit_for_bit_on_repeat(cuda, gen, n, q):
+    # the fused matvec σ²·K₀V + noise ⊙ V (Matérn-3/2, D = 8) against its
+    # plain version and a dense f64 product: both within f32 rounding of
+    # n-term sums, 4·√n·eps32·(σ²·Σ_j |V_jc| + noise·|V_ic|) (|K₀| ≤ 1); a
+    # second call gives the same bits; one sweep and its in-order sum a
+    # chunk of 33 columns, counted as one launch of the wrapper
+    from torch.profiler import ProfilerActivity, profile
+
+    from abstractgps_tpu_torch.ops import matvec
+
+    x, V, nd = _matvec_problem(gen, n, q, cuda)
+    buf = fused_gram._params_buffer((), cuda)
+    s2 = torch.tensor(1.7, device=cuda)
+    cuda_ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = matvec.gram_matvec_fused(x, V, 2, buf, s2, nd)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    chunks = -(-q // 33)
+    assert cuda_ops.LAUNCHES["gram_matvec"] == 1
+    assert sum("gram_matvec_sweep" in s for s in names) == chunks, names
+    assert sum("gram_matvec_reduce" in s for s in names) == chunks, names
+    again = matvec.gram_matvec_fused(x, V, 2, buf, s2, nd)
+    assert torch.equal(got, again)
+    plain = matvec.gram_matvec_plain(x, V, 2, buf, s2, nd)
+    x64, V64 = x.double(), V.double()
+    want = torch.empty_like(V64)
+    for r0 in range(0, n, 4096):
+        t = math.sqrt(3.0) * torch.cdist(x64[r0:r0 + 4096], x64)
+        want[r0:r0 + 4096] = 1.7 * (((1.0 + t) * torch.exp(-t)) @ V64)
+    want += nd.double()[:, None] * V64
+    Va = V64.abs()
+    tol = 4.0 * math.sqrt(n) * EPS32 * (1.7 * Va.sum(0)[None, :] + nd.double()[:, None] * Va)
+    assert bool(((got.double() - want).abs() <= tol).all())
+    assert bool(((plain.double() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("family", sorted(fused_gram.FAMILIES))
+def test_gram_matvec_every_family_and_width_matches_plain(cuda, gen, family):
+    # each family at D = 1, 12 (the 16-feature path) and 40 (features read
+    # through L1), q = 9, against the plain version within f32 rounding
+    from abstractgps_tpu_torch.ops import matvec
+
+    params = _params(family, cuda)
+    buf = fused_gram._params_buffer(params, cuda)
+    s2 = torch.tensor(1.3, device=cuda)
+    for d in (1, 12, 40):
+        x = torch.as_tensor(gen.uniform(size=(2100, d)) / math.sqrt(d), dtype=torch.float32,
+                            device=cuda)
+        V = torch.as_tensor(gen.normal(size=(2100, 9)), dtype=torch.float32, device=cuda)
+        nd = torch.full((2100,), 0.1, dtype=torch.float32, device=cuda)
+        got = matvec.gram_matvec_fused(x, V, family, buf, s2, nd)
+        want = matvec.gram_matvec_plain(x, V, family, buf, s2, nd)
+        Va = V.abs().double()
+        tol = 8.0 * math.sqrt(2100) * EPS32 * (1.3 * Va.sum(0)[None, :] + 0.1 * Va)
+        assert bool(((got.double() - want.double()).abs() <= tol).all()), (family, d)
 
 
 class _ReplayNormals:
@@ -709,10 +782,11 @@ class _ReplayNormals:
 
 
 def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
-    # the preconditioned CG logpdf at N = 3000 in 1024-row panels: every CG
-    # step run launches one gram_tile a panel, the backward rebuilds each panel
-    # once more and takes its VJP through gram_bwd, plain (the panel's rows)
-    # and transposed (the columns). Value and gradient against the same
+    # the preconditioned CG logpdf at N = 3000 past max_dense_n: every CG
+    # step run is one fused matvec (gram_matvec), the backward builds each
+    # 1024-row panel with one gram_tile and takes its VJP through gram_bwd,
+    # plain (the panel's rows) and transposed (the columns). Value and
+    # gradient against the same
     # estimator (the same probes) in f64 on the card, within 10·κ·eps with
     # κ ≤ (n·σ² + noise)/noise
     n, panels, iters = 3000, 3, 60
@@ -732,12 +806,14 @@ def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
         return torch.cat([lp.detach()[None], *[g[None] for g in torch.autograd.grad(lp, th)]])
 
     cuda_ops.reset_launches()
-    ran = profiling.LIBRARY_CALLS["cg_matvec"]
+    before = dict(profiling.LIBRARY_CALLS)
     got = value_and_grad(torch.float32)
     torch.cuda.synchronize()
-    ran = profiling.LIBRARY_CALLS["cg_matvec"] - ran  # the solver's steps run, ≤ iters
+    ran = profiling.LIBRARY_CALLS["cg_matvec"] - before["cg_matvec"]  # steps run, ≤ iters
     assert 0 < ran <= iters
-    assert cuda_ops.LAUNCHES["gram_tile"] == panels * (ran + 1), cuda_ops.LAUNCHES
+    assert profiling.LIBRARY_CALLS["cg_fused_matvec"] - before["cg_fused_matvec"] == ran
+    assert cuda_ops.LAUNCHES["gram_matvec"] == ran, cuda_ops.LAUNCHES
+    assert cuda_ops.LAUNCHES["gram_tile"] == panels, cuda_ops.LAUNCHES
     assert sorted(modes) == ["plain"] * panels + ["transpose"] * panels
     draws.replay()
     want = value_and_grad(torch.float64)
@@ -747,9 +823,10 @@ def test_cg_logpdf_gradient_on_the_card_runs_gram_bwd(cuda, gen, monkeypatch):
 
 
 def test_cg_solver_stops_on_the_card_with_the_fixed_trip_loops_bits(cuda, gen):
-    # the event-polled exit of mbcg at N = 3000 in 1024-row panels with a
-    # rank-16 preconditioner: X and the coefficient stacks bit for bit the
-    # fixed-trip loop's on the same card; at most a few steps run after
+    # the event-polled exit of mbcg at N = 3000 past max_dense_n (the fused
+    # matvec, one launch a step) with a rank-16 preconditioner: X and the
+    # coefficient stacks bit for bit the fixed-trip loop's on the same card
+    # (the fused matvec repeats its bits); at most a few steps run after
     # every column froze (those launched before the host saw the flag), the
     # rest of the 256 skipped. The loop itself, over a dense matvec, runs
     # under CUDA's sync debug mode set to raise: no blocking host read
@@ -773,6 +850,7 @@ def test_cg_solver_stops_on_the_card_with_the_fixed_trip_loops_bits(cuda, gen):
         got = iterative.mbcg(mv, B, max_iters=iters, precond=psolve)
     calls = {name: v - before[name] for name, v in profiling.LIBRARY_CALLS.items()}
     assert_bitwise(got, fixed_trip_mbcg(mv, B, max_iters=iters, precond=psolve))
+    assert calls["cg_fused_matvec"] == calls["cg_matvec"] > 0, calls  # the fused route
     assert calls["cg_matvec"] + calls["cg_skipped_matvec"] == iters, calls
     assert calls["cg_skipped_matvec"] > 0 and calls["cg_converged_matvec"] <= 8, calls
 

@@ -284,18 +284,20 @@ def test_cg_logpdf_kernel_path_f32_matches_jax(jax_kernel_path, monkeypatch):
         th = [torch.tensor(v, requires_grad=True) for v in vals]
         yt = torch.as_tensor(y).requires_grad_()
         k = th[0] * agt.with_lengthscale(agt.Matern32Kernel(), th[1])
-        ran = profiling.LIBRARY_CALLS["cg_matvec"]
+        before = dict(profiling.LIBRARY_CALLS)
         out = ti.cg_logpdf(agt.GP(k)(torch.as_tensor(x), th[2]), yt, JaxDraws(rec), **K_KW)
-        ran = profiling.LIBRARY_CALLS["cg_matvec"] - ran
+        ran = profiling.LIBRARY_CALLS["cg_matvec"] - before["cg_matvec"]
+        fused = profiling.LIBRARY_CALLS["cg_fused_matvec"] - before["cg_fused_matvec"]
         n_fwd = len(tiles)
         got = torch.autograd.grad(out, [*th, yt])
     panels = -(-KN // 64)
     assert out.dtype == torch.float32
-    # one gram tile per panel per CG step run (the solver stops once every
-    # column froze), the backward one more per panel, each panel's VJP plain
-    # (its rows) and transposed (the columns)
-    assert 0 < ran <= K_KW["max_iters"]
-    assert n_fwd == panels * ran and len(tiles) == n_fwd + panels
+    # every CG step run (the solver stops once every column froze) is one
+    # fused matvec (σ²·Matérn-3/2∘ScaleTransform: its plain twin here), with
+    # no gram tile; the backward builds one gram tile per panel, each panel's
+    # VJP plain (its rows) and transposed (the columns)
+    assert 0 < ran <= K_KW["max_iters"] and fused == ran
+    assert n_fwd == 0 and len(tiles) == panels
     assert set(tiles) == {64}
     assert sorted(modes) == ["plain"] * panels + ["transpose"] * panels
     np.testing.assert_allclose(float(out.detach()), want_val, rtol=1e-5)
