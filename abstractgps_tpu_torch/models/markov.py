@@ -54,6 +54,7 @@ from ..ops.distance import as_inputs, as_tensor
 from ..ops.draws import as_draws
 from ..ops.noise import DenseNoise, as_noise
 from ..ops.precision import full_f32
+from ..utils.profiling import LIBRARY_CALLS, span
 from .gp import AbstractGP
 
 __all__ = [
@@ -249,32 +250,33 @@ def _build_ssm(kernel, x_sorted, dtype):
     Returns (A, Q, H, Pinf) with A/Q shaped (n, D, D); step 0 encodes the
     stationary prior via A=0, Q=P∞ so the filter needs no special casing.
     """
-    comps = sde_coefficients(kernel, dtype, x_sorted.device)
-    dts = torch.diff(x_sorted)  # (n-1,)
+    with span("ops.markov.ssm"):
+        comps = sde_coefficients(kernel, dtype, x_sorted.device)
+        dts = torch.diff(x_sorted)  # (n-1,)
 
-    blocks_A, blocks_Q, Hs, Ps = [], [], [], []
-    for lam, p, var in comps:
-        N, P, H = _component_matrices(lam, p, var, dtype)
-        eye = torch.eye(p, dtype=dtype, device=x_sorted.device)
-        # A_of broadcast over the n-1 steps
-        Ndt = N * dts[:, None, None]
-        series = eye + Ndt
-        if p == 3:
-            series = series + 0.5 * (Ndt @ Ndt)
-        blocks_A.append(torch.exp(-lam * dts)[:, None, None] * series)  # (n-1, p, p)
-        blocks_Q.append(_stable_Q(lam, p, var, dts, dtype))
-        Hs.append(H)
-        Ps.append(P)
+        blocks_A, blocks_Q, Hs, Ps = [], [], [], []
+        for lam, p, var in comps:
+            N, P, H = _component_matrices(lam, p, var, dtype)
+            eye = torch.eye(p, dtype=dtype, device=x_sorted.device)
+            # A_of broadcast over the n-1 steps
+            Ndt = N * dts[:, None, None]
+            series = eye + Ndt
+            if p == 3:
+                series = series + 0.5 * (Ndt @ Ndt)
+            blocks_A.append(torch.exp(-lam * dts)[:, None, None] * series)  # (n-1, p, p)
+            blocks_Q.append(_stable_Q(lam, p, var, dts, dtype))
+            Hs.append(H)
+            Ps.append(P)
 
-    D = sum(b.shape[-1] for b in blocks_A)
-    A_steps = _blkdiag(blocks_A, D, (dts.shape[0],))  # (n-1, D, D)
-    Q_steps = _blkdiag(blocks_Q, D, (dts.shape[0],))
-    Pinf = _blkdiag(Ps, D)
-    H = torch.cat(Hs)  # (D,)
+        D = sum(b.shape[-1] for b in blocks_A)
+        A_steps = _blkdiag(blocks_A, D, (dts.shape[0],))  # (n-1, D, D)
+        Q_steps = _blkdiag(blocks_Q, D, (dts.shape[0],))
+        Pinf = _blkdiag(Ps, D)
+        H = torch.cat(Hs)  # (D,)
 
-    A = torch.cat([A_steps.new_zeros((1, D, D)), A_steps], dim=0)
-    Q = torch.cat([Pinf[None], Q_steps], dim=0)
-    return A, Q, H, Pinf
+        A = torch.cat([A_steps.new_zeros((1, D, D)), A_steps], dim=0)
+        Q = torch.cat([Pinf[None], Q_steps], dim=0)
+        return A, Q, H, Pinf
 
 
 # ---------------------------------------------------------------------------
@@ -412,12 +414,17 @@ def _chunked_associative_scan(combine, elems, identity, chunk=None):
     the first chunk's carry. The tail is padded with all-zero elements and
     the padded outputs sliced off — ``combine`` must be well-defined (no
     NaN/inf) on zero elements.
+
+    Spans: ``ops.markov.scan`` around (1) and around (3),
+    ``ops.markov.carry`` around (2); ``LIBRARY_CALLS["markov_carry_combine"]``
+    counts the loop's combines.
     """
     if chunk is None:
         chunk = _PAR_CHUNK  # late-bound so tests/tuning can override
     n = elems[0].shape[0]
     if n <= chunk:
-        return _associative_scan(combine, elems)
+        with span("ops.markov.scan"):
+            return _associative_scan(combine, elems)
     pad = (-n) % chunk
     nc = (n + pad) // chunk
 
@@ -426,15 +433,19 @@ def _chunked_associative_scan(combine, elems, identity, chunk=None):
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         return x.reshape((nc, chunk) + tuple(x.shape[1:]))
 
-    within = _associative_scan(combine, tuple(pad_reshape(x) for x in elems), axis=1)
+    with span("ops.markov.scan"):
+        within = _associative_scan(combine, tuple(pad_reshape(x) for x in elems), axis=1)
     carry = tuple(torch.broadcast_to(i, w.shape[2:]) for i, w in zip(identity, within))
     carries = [carry]
-    for c in range(nc - 1):
-        carry = combine(carry, tuple(w[c, -1] for w in within))
-        carries.append(carry)
-    carries = tuple(torch.stack(cs)[:, None] for cs in zip(*carries))
-    out = combine(carries, within)
-    return tuple(o.reshape((-1,) + tuple(o.shape[2:]))[:n] for o in out)
+    with span("ops.markov.carry"):
+        LIBRARY_CALLS["markov_carry_combine"] += nc - 1
+        for c in range(nc - 1):
+            carry = combine(carry, tuple(w[c, -1] for w in within))
+            carries.append(carry)
+    with span("ops.markov.scan"):
+        carries = tuple(torch.stack(cs)[:, None] for cs in zip(*carries))
+        out = combine(carries, within)
+        return tuple(o.reshape((-1,) + tuple(o.shape[2:]))[:n] for o in out)
 
 
 def _par_filter(A, Q, H, y, r, obs_mask):
@@ -459,17 +470,18 @@ def _par_filter(A, Q, H, y, r, obs_mask):
     batch = tuple(y.shape[1:])
     ones = (1,) * len(batch)
 
-    S = torch.einsum("i,nij,j->n", H, Q, H) + r                      # (n,)
-    K = torch.where(obs_mask[:, None], (Q @ H) / S[:, None], 0.0)    # (n, D)
-    IKH = eye - K[:, :, None] * H[None, None, :]                     # (n, D, D)
-    A_el = IKH @ A
-    C_el = IKH @ Q
-    HS = torch.where(obs_mask[:, None], H[None, :] / S[:, None], 0.0)  # (n, D)
-    AtHS = torch.einsum("nji,nj->ni", A, HS)                         # Aᵀ H / S
-    J_el = AtHS[:, :, None] * torch.einsum("nij,i->nj", A, H)[:, None, :]
-    yb = y.reshape((n,) + batch + (1,))
-    b_el = K.reshape((n,) + ones + (D,)) * yb
-    eta_el = AtHS.reshape((n,) + ones + (D,)) * yb
+    with span("ops.markov.ssm"):  # the filtering elements
+        S = torch.einsum("i,nij,j->n", H, Q, H) + r                      # (n,)
+        K = torch.where(obs_mask[:, None], (Q @ H) / S[:, None], 0.0)    # (n, D)
+        IKH = eye - K[:, :, None] * H[None, None, :]                     # (n, D, D)
+        A_el = IKH @ A
+        C_el = IKH @ Q
+        HS = torch.where(obs_mask[:, None], H[None, :] / S[:, None], 0.0)  # (n, D)
+        AtHS = torch.einsum("nji,nj->ni", A, HS)                         # Aᵀ H / S
+        J_el = AtHS[:, :, None] * torch.einsum("nij,i->nj", A, H)[:, None, :]
+        yb = y.reshape((n,) + batch + (1,))
+        b_el = K.reshape((n,) + ones + (D,)) * yb
+        eta_el = AtHS.reshape((n,) + ones + (D,)) * yb
 
     def mat(M):
         return M.reshape((n,) + ones + (D, D))
@@ -496,17 +508,18 @@ def _par_filter(A, Q, H, y, r, obs_mask):
     )
     m_f, P_f = b_f, C_f.reshape(n, D, D)  # filtered moments
 
-    # predictions: m_pred_k = A_k m_{k-1}, P_pred_k = A_k P_{k-1} A_kᵀ + Q_k
-    m_prev = torch.cat([m_f.new_zeros((1,) + tuple(m_f.shape[1:])), m_f[:-1]], dim=0)
-    P_prev = torch.cat([P_f.new_zeros((1, D, D)), P_f[:-1]], dim=0)
-    m_p = _mv(mat(A), m_prev)
-    P_p = A @ P_prev @ A.mT + Q
+    with span("ops.markov.likelihood"):
+        # predictions: m_pred_k = A_k m_{k-1}, P_pred_k = A_k P_{k-1} A_kᵀ + Q_k
+        m_prev = torch.cat([m_f.new_zeros((1,) + tuple(m_f.shape[1:])), m_f[:-1]], dim=0)
+        P_prev = torch.cat([P_f.new_zeros((1, D, D)), P_f[:-1]], dim=0)
+        m_p = _mv(mat(A), m_prev)
+        P_p = A @ P_prev @ A.mT + Q
 
-    v = y - m_p @ H
-    Sp = (torch.einsum("i,nij,j->n", H, P_p, H) + r).reshape((n,) + ones)
-    terms = -0.5 * (_LOG_2PI + torch.log(Sp) + v * v / Sp)
-    lls = torch.where(obs_mask.reshape((n,) + ones), terms, 0.0)
-    return m_f, P_f, m_p, P_p, lls.sum(0)
+        v = y - m_p @ H
+        Sp = (torch.einsum("i,nij,j->n", H, P_p, H) + r).reshape((n,) + ones)
+        terms = -0.5 * (_LOG_2PI + torch.log(Sp) + v * v / Sp)
+        lls = torch.where(obs_mask.reshape((n,) + ones), terms, 0.0)
+        return m_f, P_f, m_p, P_p, lls.sum(0)
 
 
 def _rts_smoother(A, m_f, P_f, m_p, P_p):
@@ -591,15 +604,17 @@ def markov_logpdf(fx, y, parallel: bool = False) -> torch.Tensor:
     need not be sorted. ``y`` may be a vector (n,) → scalar, or a matrix
     (n, q) → (q,) of column-wise log densities (the FiniteGP contract; the
     columns share one pass of the filter). ``parallel=True`` uses the
-    associative-scan filter (O(log N) depth, no per-step loop).
+    associative-scan filter (O(log N) depth, no per-step loop). A
+    ``model.markov_logpdf`` span.
     """
-    ts, ys, rs, _, dtype = _prep(fx, y)
-    m = mean_vector(fx.f.mean_fn, ts[:, None]).to(dtype)
-    A, Q, H, _ = _build_ssm(fx.f.kernel, ts, dtype)
-    obs = torch.ones(ts.shape, dtype=torch.bool, device=ts.device)
-    run = _par_filter if parallel else _seq_filter
-    yc = ys - (m if ys.ndim == 1 else m[:, None])
-    return run(A, Q, H, yc, rs, obs)[-1]
+    with span("model.markov_logpdf"):
+        ts, ys, rs, _, dtype = _prep(fx, y)
+        m = mean_vector(fx.f.mean_fn, ts[:, None]).to(dtype)
+        A, Q, H, _ = _build_ssm(fx.f.kernel, ts, dtype)
+        obs = torch.ones(ts.shape, dtype=torch.bool, device=ts.device)
+        run = _par_filter if parallel else _seq_filter
+        yc = ys - (m if ys.ndim == 1 else m[:, None])
+        return run(A, Q, H, yc, rs, obs)[-1]
 
 
 def _merged_timeline(fx, y, x_test):

@@ -12,8 +12,8 @@ own spans:
 - ``trace(logdir)`` records the spans of a block beside a
   ``torch.profiler`` capture and writes both to one Chrome trace.
 - ``LIBRARY_CALLS`` counts the library calls of the ops layer at their
-  wrappers, as ``ops.cuda.LAUNCHES`` counts the hand-written kernels, and
-  the CG solver's matvecs.
+  wrappers, as ``ops.cuda.LAUNCHES`` counts the hand-written kernels, the
+  CG solver's matvecs, and the Markov scan's cross-chunk combines.
 - ``timed`` measures a block's wall time with a device sync at its end;
   ``roofline`` turns a measured time into achieved FLOP/s and a fraction
   of the card's peak.
@@ -52,10 +52,11 @@ H100_PEAK_F32 = 67e12
 # every column had frozen, and the steps it ran with no column active, the
 # exit's lag (counted only while a ``recording()`` is open: it takes a host
 # read of the solver's state); the matvecs that took ``ops.matvec``'s fused
-# route (one launch of ``gram_matvec``)
+# route (one launch of ``gram_matvec``); the cross-chunk combines of the
+# Markov backend's chunked scan, made one after another on the host
 LIBRARY_CALLS = {"mm": 0, "tri_solve": 0, "cholesky_lower": 0, "wide_inverse": 0,
                  "whiten_cached": 0, "cg_matvec": 0, "cg_skipped_matvec": 0,
-                 "cg_converged_matvec": 0, "cg_fused_matvec": 0}
+                 "cg_converged_matvec": 0, "cg_fused_matvec": 0, "markov_carry_combine": 0}
 
 UNIT_ROOTS = ("fit.step", "posterior.mean_and_var")
 

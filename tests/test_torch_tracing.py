@@ -17,6 +17,13 @@
   ``library.cg_skipped_matvec`` the steps the solver stopped short of, and
   ``library.cg_converged_matvec``, only while recording, those after every
   column had frozen.
+- The parallel Markov logpdf opens ``model.markov_logpdf`` and in it
+  ``ops.markov.ssm`` (the model, then its filtering elements), ``.scan``
+  (the recursion; in a chunked scan the carries' final combine too),
+  ``.carry`` (a chunked scan only) and ``.likelihood``; ``library.markov_carry_combine`` counts
+  ⌈n / chunk⌉ − 1 a call, recording or not; nothing is recorded outside
+  ``recording()``, and its value and gradient are bitwise the same with
+  the recorder on and off.
 """
 
 import json
@@ -359,3 +366,66 @@ def test_a_cg_step_records_no_span_while_nothing_records(monkeypatch):
     monkeypatch.setattr(profiling, "_On", opened)
     _cg_fit()
     assert profiling._REC is None and not profiling._STACK
+
+
+def _markov_value_and_grad(n):
+    """The parallel Markov logpdf of σ²·Matérn-3/2 + noise on n sorted
+    timestamps (a few repeated), and its gradient in (σ², ℓ, noise)."""
+    g = torch.Generator().manual_seed(5)
+    t = torch.sort(torch.rand(n, generator=g) * n * 1e-3).values
+    t[1::40] = t[0::40]
+    y = torch.sin(2 * math.pi * t) + 0.3 * torch.randn(n, generator=g)
+    th = {k: torch.tensor(v, requires_grad=True) for k, v in dict(s2=1.0, ell=0.5,
+                                                                  noise=0.1).items()}
+    val = agt.markov_logpdf(_build(th, t), y, parallel=True)
+    return val.detach(), torch.autograd.grad(val, list(th.values()))
+
+
+@pytest.mark.parametrize("n", [1000, 50])
+def test_the_markov_spans_nest_and_the_carries_count(monkeypatch, n):
+    from abstractgps_tpu_torch.models import markov
+
+    monkeypatch.setattr(markov, "_PAR_CHUNK", 64)
+    carries = math.ceil(n / 64) - 1  # 15 in the chunked scan, 0 when n fits one chunk
+    before = profiling.LIBRARY_CALLS["markov_carry_combine"]
+    with profiling.recording() as rec:
+        _markov_value_and_grad(n)
+    assert profiling.LIBRARY_CALLS["markov_carry_combine"] - before == carries
+    spans = rec.spans
+    names = Counter(s.name for s in spans)
+    assert names == Counter({"model.markov_logpdf": 1, "ops.markov.ssm": 2,
+                             "ops.markov.scan": 2 if carries else 1,
+                             "ops.markov.likelihood": 1,
+                             **({"ops.markov.carry": 1} if carries else {})})
+    for i, s in enumerate(spans):
+        if s.name != "model.markov_logpdf":
+            assert spans[s.parent].name == "model.markov_logpdf"
+        if s.name == "ops.markov.carry":
+            assert s.counts == {"library.markov_carry_combine": carries}
+    # the counter counts with nothing recording, too
+    before = profiling.LIBRARY_CALLS["markov_carry_combine"]
+    _markov_value_and_grad(n)
+    assert profiling.LIBRARY_CALLS["markov_carry_combine"] - before == carries
+
+
+def test_the_markov_path_records_nothing_while_nothing_records(monkeypatch):
+    from abstractgps_tpu_torch.models import markov
+
+    def opened(name):
+        raise AssertionError(f"span {name!r} recorded with no recording open")
+
+    monkeypatch.setattr(markov, "_PAR_CHUNK", 64)
+    monkeypatch.setattr(profiling, "_On", opened)
+    _markov_value_and_grad(1000)
+    assert profiling._REC is None and not profiling._STACK
+
+
+def test_the_markov_outputs_are_bitwise_the_same_recording_or_not(monkeypatch):
+    from abstractgps_tpu_torch.models import markov
+
+    monkeypatch.setattr(markov, "_PAR_CHUNK", 64)
+    off = _markov_value_and_grad(1000)
+    with profiling.recording():
+        on = _markov_value_and_grad(1000)
+    assert torch.equal(off[0], on[0])
+    assert all(torch.equal(a, b) for a, b in zip(off[1], on[1]))
