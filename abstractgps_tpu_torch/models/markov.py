@@ -15,7 +15,8 @@ with state dimension p ∈ {1, 2, 3} a component. Two execution strategies:
 - the **parallel-in-time** filter (Särkkä & García-Fernández 2020) as an
   associative scan, ``parallel=True``: the odd/even recursion of
   ``lax.associative_scan`` within chunks of ``_PAR_CHUNK`` steps, batched
-  over the chunks, then the cross-chunk prefixes. No per-step loop, so it
+  over the chunks, then the cross-chunk prefixes by a second such
+  recursion over the chunks' totals. No loop over steps or chunks, so it
   is the one to run at N = 10⁶.
 
 Supported kernels: ExponentialKernel/Matern12 (p=1), Matern32 (p=2),
@@ -33,6 +34,9 @@ Deliberate divergence from the JAX package: ``_stable_Q`` writes P(1, x)
 as ``−expm1(−x)``, the same function with a finite derivative at x = 0,
 where ``gammainc(1, ·)``'s derivative is NaN. Repeated timepoints (dt = 0)
 therefore give finite lengthscale gradients here; the JAX package's are NaN.
+And the chunked scan's cross-chunk carries are an odd/even scan over the
+chunk totals (``_chunked_associative_scan``), where the JAX package folds
+them left to right: the same products, rounded in another association.
 
 f32 accuracy contract (f64 is exact to ~1e-9): single Matérn components
 hold ~1e-4 relative logpdf error at densely sampled inputs; kernel SUMS
@@ -400,24 +404,31 @@ _PAR_CHUNK = 4096  # inner associative-scan width for the chunked filter
 def _chunked_associative_scan(combine, elems, identity, chunk=None):
     """Inclusive associative scan over axis 0 in chunks of ``chunk``.
 
-    The JAX package's blocked decomposition, which bounds its compile
-    cost: pad to whole chunks, scan within each chunk, then compose the
-    running cross-chunk prefix into every element. Eager torch compiles
-    nothing, but computes what the JAX package computes, op for op: (1) one
-    odd/even recursion over all chunks at once, on a (chunks, chunk, …)
-    batch; (2) the cross-chunk carries in chunk order,
-    ``carry ← combine(carry, within[-1])`` (a loop of ``chunks − 1``
-    combines, the only loop here); (3) one batched ``combine(carry,
-    within)``.
+    The JAX package's blocked decomposition: pad to whole chunks, scan
+    within each chunk, then compose the running cross-chunk prefix into
+    every element. (1) One odd/even recursion over all chunks at once, on a
+    (chunks, chunk, …) batch. (2) The cross-chunk carries: chunk c's carry
+    is the inclusive prefix of chunks 0 … c−1's totals (each chunk's last
+    within-chunk output), so the carries are one more ``_associative_scan``
+    of the same monoid, over the first ``chunks − 1`` totals, in log₂ depth
+    with two batched combines a level; the first chunk's carry is the
+    identity. (3) One batched ``combine(carry, within)``.
+
+    Rounding: the JAX package folds the carries left to right in its
+    ``lax.scan``, a fold that eager torch would issue combine by combine
+    from the host. Here each carry is the same product of the same totals,
+    associated as the odd/even tree associates them, as within a chunk and
+    in the unchunked scan.
 
     ``identity`` is the monoid's left identity (combine(identity, x) == x),
     the first chunk's carry. The tail is padded with all-zero elements and
     the padded outputs sliced off — ``combine`` must be well-defined (no
-    NaN/inf) on zero elements.
+    NaN/inf) on zero elements. Only the last chunk holds padding, and its
+    total enters no carry.
 
     Spans: ``ops.markov.scan`` around (1) and around (3),
     ``ops.markov.carry`` around (2); ``LIBRARY_CALLS["markov_carry_combine"]``
-    counts the loop's combines.
+    counts (2)'s combines, two a level of its recursion.
     """
     if chunk is None:
         chunk = _PAR_CHUNK  # late-bound so tests/tuning can override
@@ -433,25 +444,47 @@ def _chunked_associative_scan(combine, elems, identity, chunk=None):
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         return x.reshape((nc, chunk) + tuple(x.shape[1:]))
 
+    def counted(e1, e2):
+        LIBRARY_CALLS["markov_carry_combine"] += 1
+        return combine(e1, e2)
+
     with span("ops.markov.scan"):
         within = _associative_scan(combine, tuple(pad_reshape(x) for x in elems), axis=1)
-    carry = tuple(torch.broadcast_to(i, w.shape[2:]) for i, w in zip(identity, within))
-    carries = [carry]
     with span("ops.markov.carry"):
-        LIBRARY_CALLS["markov_carry_combine"] += nc - 1
-        for c in range(nc - 1):
-            carry = combine(carry, tuple(w[c, -1] for w in within))
-            carries.append(carry)
+        prefixes = _associative_scan(counted, tuple(w[:-1, -1] for w in within))
+        carries = tuple(torch.cat([torch.broadcast_to(i, w.shape[2:])[None], p])
+                        for i, w, p in zip(identity, within, prefixes))
     with span("ops.markov.scan"):
-        carries = tuple(torch.stack(cs)[:, None] for cs in zip(*carries))
-        out = combine(carries, within)
+        out = combine(tuple(c[:, None] for c in carries), within)
         return tuple(o.reshape((-1,) + tuple(o.shape[2:]))[:n] for o in out)
+
+
+def _element_combine(eye):
+    """The associative operator of the filtering elements (A, b, C, η, J)
+    (Särkkä & García-Fernández 2020), batched over leading dims;
+    ``eye`` is the (D, D) identity of the state."""
+
+    def combine(e1, e2):
+        A1, b1, C1, e1t, J1 = e1
+        A2, b2, C2, e2t, J2 = e2
+        T = _inv_posdef_small(eye + C1 @ J2)
+        AT = A2 @ T
+        Anew = AT @ A1
+        bnew = _mv(AT, b1 + _mv(C1, e2t)) + b2
+        Cnew = AT @ C1 @ A2.mT + C2
+        Tt = _inv_posdef_small(eye + J2 @ C1)
+        A1T = A1.mT @ Tt
+        enew = _mv(A1T, e2t - _mv(J2, b1)) + e1t
+        Jnew = A1T @ J2 @ A1 + J1
+        return (Anew, bnew, Cnew, enew, Jnew)
+
+    return combine
 
 
 def _par_filter(A, Q, H, y, r, obs_mask):
     """Parallel-in-time Kalman filter via associative scan
-    (Särkkä & García-Fernández 2020, filtering elements). O(log chunk)
-    depth within chunks (``_chunked_associative_scan``). Same outputs as
+    (Särkkä & García-Fernández 2020, filtering elements). O(log N) depth,
+    within chunks and across them (``_chunked_associative_scan``). Same outputs as
     ``_seq_filter``; ``y`` may carry a batch after its time axis.
 
     Unobserved steps degenerate to pure prediction elements (K = 0, η = 0,
@@ -486,25 +519,11 @@ def _par_filter(A, Q, H, y, r, obs_mask):
     def mat(M):
         return M.reshape((n,) + ones + (D, D))
 
-    def combine(e1, e2):
-        A1, b1, C1, e1t, J1 = e1
-        A2, b2, C2, e2t, J2 = e2
-        T = _inv_posdef_small(eye + C1 @ J2)
-        AT = A2 @ T
-        Anew = AT @ A1
-        bnew = _mv(AT, b1 + _mv(C1, e2t)) + b2
-        Cnew = AT @ C1 @ A2.mT + C2
-        Tt = _inv_posdef_small(eye + J2 @ C1)
-        A1T = A1.mT @ Tt
-        enew = _mv(A1T, e2t - _mv(J2, b1)) + e1t
-        Jnew = A1T @ J2 @ A1 + J1
-        return (Anew, bnew, Cnew, enew, Jnew)
-
     # identity of the filtering-element monoid: combine(id, x) == x
     zv, zm = H.new_zeros((D,)), H.new_zeros((D, D))
     identity = (eye, zv, zm, zv, zm)
     _, b_f, C_f, _, _ = _chunked_associative_scan(
-        combine, (mat(A_el), b_el, mat(C_el), eta_el, mat(J_el)), identity
+        _element_combine(eye), (mat(A_el), b_el, mat(C_el), eta_el, mat(J_el)), identity
     )
     m_f, P_f = b_f, C_f.reshape(n, D, D)  # filtered moments
 

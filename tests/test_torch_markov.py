@@ -130,11 +130,14 @@ def test_logpdf_matrix_y(data, parallel):
     _close(got, _n(fx.logpdf(_t(Y))), rtol=1e-8, atol_rel=1e-8)
 
 
-@pytest.mark.parametrize("n", [250, 256])
+@pytest.mark.parametrize("n", [250, 256, 333])
 def test_chunked_scan_matches_jax(monkeypatch, n):
     """The chunked associative scan (n > _PAR_CHUNK, set to 64 in both
-    packages) against the JAX package's, including a non-chunk-multiple n
-    (zero padding), and against the port's sequential filter."""
+    packages) against the JAX package's, whose carries are a sequential
+    fold, including a non-chunk-multiple n (zero padding) and six chunks
+    with a ragged tail (333), and against the port's sequential filter:
+    its logpdf and its filtered and predicted moments; and the gradient of
+    a Matérn-3/2 logpdf in (σ², ℓ, noise) against the JAX package's."""
     monkeypatch.setattr(jm, "_PAR_CHUNK", 64)
     monkeypatch.setattr(tm, "_PAR_CHUNK", 64)
     rng = np.random.default_rng(n)
@@ -145,6 +148,89 @@ def test_chunked_scan_matches_jax(monkeypatch, n):
     got = tm.markov_logpdf(fx, _t(y), parallel=True)
     _close(got, _jax_logpdf(kj, x, y, True))
     _close(got, _n(tm.markov_logpdf(fx, _t(y))), rtol=1e-8, atol_rel=0.0)
+    A, Q, H, _ = tm._build_ssm(fx.f.kernel, _t(x), F64)
+    r, obs = torch.full((n,), 0.1, dtype=F64), torch.ones(n, dtype=torch.bool)
+    par = tm._par_filter(A, Q, H, _t(y), r, obs)
+    for p_, s_ in zip(par, tm._seq_filter(A, Q, H, _t(y), r, obs)):
+        _close(p_, s_, rtol=1e-8, atol_rel=1e-8)
+    grad = _port_grad(x, y, True, _theta())
+    want = _jax_grad(x, y, lambda fx, y_: jm.markov_logpdf(fx, y_, parallel=True))
+    np.testing.assert_allclose(grad, want, rtol=1e-9, atol=1e-10)
+
+
+def _fold_chunked_scan(combine, elems, identity, chunk):
+    """The chunked scan with its cross-chunk carries folded left to right,
+    one combine a chunk, as the JAX package composes them: the oracle of
+    ``tm._chunked_associative_scan``'s scan over the chunk totals."""
+    n = elems[0].shape[0]
+    if n <= chunk:
+        return tm._associative_scan(combine, elems)
+    pad = (-n) % chunk
+    nc = (n + pad) // chunk
+
+    def pad_reshape(x):
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        return x.reshape((nc, chunk) + tuple(x.shape[1:]))
+
+    within = tm._associative_scan(combine, tuple(pad_reshape(x) for x in elems), axis=1)
+    carry = tuple(torch.broadcast_to(i, w.shape[2:]) for i, w in zip(identity, within))
+    carries = [carry]
+    for c in range(nc - 1):
+        carry = combine(carry, tuple(w[c, -1] for w in within))
+        carries.append(carry)
+    carries = tuple(torch.stack(cs)[:, None] for cs in zip(*carries))
+    out = combine(carries, within)
+    return tuple(o.reshape((-1,) + tuple(o.shape[2:]))[:n] for o in out)
+
+
+def _filtering_elements(rng, n, D, batch):
+    """n random well-posed filtering elements (A, b, C, η, J) of state
+    dimension D, as ``_par_filter`` shapes them for a y of ``batch``
+    columns: A contracting (spectral norm 0.9), C and J positive
+    semi-definite, so every I + C·J the combine inverts is regular."""
+    def psd():
+        G = rng.normal(size=(n, 1, D, D)) / np.sqrt(D)
+        return G @ np.swapaxes(G, -1, -2)
+
+    M = rng.normal(size=(n, 1, D, D))
+    A = 0.9 * M / np.linalg.norm(M, ord=2, axis=(-2, -1))[..., None, None]
+    vec = lambda: rng.normal(size=(n, batch, D))  # noqa: E731
+    return tuple(_t(e).requires_grad_() for e in (A, vec(), psd(), vec(), psd()))
+
+
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("nc", range(1, 41))
+def test_the_scan_of_the_chunk_totals_matches_the_fold(nc, D):
+    """The chunked scan, whose carries are an odd/even scan over the chunk
+    totals, against the same scan with its carries folded chunk by chunk:
+    1 to 40 chunks of 4 with a ragged tail, the real filtering-element
+    combine, f64; the outputs and their gradients in every element tensor
+    agree to rounding.
+
+    The combine is associative where C and J are symmetric, as a filter's
+    covariances and informations are, and each is a symmetric function of
+    the hyperparameters. So the gradients in C and J are compared along
+    symmetric directions, G + Gᵀ: their antisymmetric parts (a derivative
+    off the monoid) depend on the association and differ by ~1e-4."""
+    chunk = 4
+    n = nc * chunk - nc % 3
+    rng = np.random.default_rng(100 * D + nc)
+    elems = _filtering_elements(rng, n, D, batch=2)
+    eye = torch.eye(D, dtype=F64)
+    combine = tm._element_combine(eye)
+    zv, zm = torch.zeros(D, dtype=F64), torch.zeros(D, D, dtype=F64)
+    identity = (eye, zv, zm, zv, zm)
+    got = tm._chunked_associative_scan(combine, elems, identity, chunk=chunk)
+    want = _fold_chunked_scan(combine, elems, identity, chunk)
+    weights = [_t(rng.normal(size=w.shape)) for w in want]
+    for g, w in zip(got, want):
+        _close(g, _n(w))
+    grads = [torch.autograd.grad(sum((o * c).sum() for o, c in zip(out, weights)), elems)
+             for out in (got, want)]
+    for i, (g, w) in enumerate(zip(*grads)):
+        if i in (2, 4):  # C, J
+            g, w = g + g.mT, w + w.mT
+        _close(g, w)
 
 
 def test_associative_scan_matches_cumulative_sum():

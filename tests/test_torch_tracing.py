@@ -21,7 +21,8 @@
   ``ops.markov.ssm`` (the model, then its filtering elements), ``.scan``
   (the recursion; in a chunked scan the carries' final combine too),
   ``.carry`` (a chunked scan only) and ``.likelihood``; ``library.markov_carry_combine`` counts
-  ⌈n / chunk⌉ − 1 a call, recording or not; nothing is recorded outside
+  the combines of the scan over the chunk totals, two a level of its
+  odd/even recursion, recording or not; nothing is recorded outside
   ``recording()``, and its value and gradient are bitwise the same with
   the recorder on and off.
 """
@@ -381,31 +382,36 @@ def _markov_value_and_grad(n):
     return val.detach(), torch.autograd.grad(val, list(th.values()))
 
 
-@pytest.mark.parametrize("n", [1000, 50])
-def test_the_markov_spans_nest_and_the_carries_count(monkeypatch, n):
+@pytest.mark.parametrize("n, chunk, combines", [
+    (1000, 64, 6),    # 15 totals: levels of 15, 7, 3
+    (50, 64, 0),      # one chunk: no carries
+    (128, 64, 0),     # two chunks: the one total is its own prefix
+    (2048, 8, 14),    # 255 totals: levels of 255, 127, ..., 3; a fold made 255
+])
+def test_the_markov_spans_nest_and_the_carries_count(monkeypatch, n, chunk, combines):
     from abstractgps_tpu_torch.models import markov
 
-    monkeypatch.setattr(markov, "_PAR_CHUNK", 64)
-    carries = math.ceil(n / 64) - 1  # 15 in the chunked scan, 0 when n fits one chunk
+    monkeypatch.setattr(markov, "_PAR_CHUNK", chunk)
+    chunked = n > chunk
     before = profiling.LIBRARY_CALLS["markov_carry_combine"]
     with profiling.recording() as rec:
         _markov_value_and_grad(n)
-    assert profiling.LIBRARY_CALLS["markov_carry_combine"] - before == carries
+    assert profiling.LIBRARY_CALLS["markov_carry_combine"] - before == combines
     spans = rec.spans
     names = Counter(s.name for s in spans)
     assert names == Counter({"model.markov_logpdf": 1, "ops.markov.ssm": 2,
-                             "ops.markov.scan": 2 if carries else 1,
+                             "ops.markov.scan": 2 if chunked else 1,
                              "ops.markov.likelihood": 1,
-                             **({"ops.markov.carry": 1} if carries else {})})
+                             **({"ops.markov.carry": 1} if chunked else {})})
     for i, s in enumerate(spans):
         if s.name != "model.markov_logpdf":
             assert spans[s.parent].name == "model.markov_logpdf"
         if s.name == "ops.markov.carry":
-            assert s.counts == {"library.markov_carry_combine": carries}
+            assert s.counts == ({"library.markov_carry_combine": combines} if combines else {})
     # the counter counts with nothing recording, too
     before = profiling.LIBRARY_CALLS["markov_carry_combine"]
     _markov_value_and_grad(n)
-    assert profiling.LIBRARY_CALLS["markov_carry_combine"] - before == carries
+    assert profiling.LIBRARY_CALLS["markov_carry_combine"] - before == combines
 
 
 def test_the_markov_path_records_nothing_while_nothing_records(monkeypatch):
